@@ -15,7 +15,22 @@ Phases (any failure exits non-zero; no phase is caught):
    dense kernel variant and match the port's own CPU run;
 4. scene B (n=1934): the same through the split variant, certified at
    rank 3;
-5. print the kernels' JSON line, the card's name and power limit, and the
+5. scene C (n=6144, the implicit size): ``xm2._assemble_operator`` must pick
+   the implicit ``SchurQ``; both segment-sum kernels are held against their
+   plain twin on its real orderings (landmark and frame, D in {3, 6, 9, 18},
+   f32 and f64, the blocked one on ``schedule_edges``' layout of the landmark
+   ordering), two launches must give the same bits, and each is timed beside
+   its bound and ``index_add_``;
+6. scene B through ``SchurQ`` (the mixed ladder on the two-float operator,
+   the matvec certificate): certified at rank 3 within 5e-3 of the
+   reference's primal;
+7. scene C through ``xm2._solve_recover`` at xm2's defaults: certified at
+   rank 3 within 5e-3 of the reference's primal, recovered rotations no
+   worse than 1.5x the reference's errors, segment-sum and tcg_step
+   launches > 0;
+8. ``xm2_solve(implicit=True)`` on scene B: its phases, and rotation errors
+   no worse than 1.5x the reference's;
+9. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 A kernel's ``ms`` is its time on the card per launch (profiler durations);
@@ -23,7 +38,11 @@ A kernel's ``ms`` is its time on the card per launch (profiler durations);
 complete (CUDA events), which the host bounds at these sizes; ``plain_ms``
 is the plain version's time per call by CUDA events, its host syncs
 included; ``library_ms`` is the card's time for ``torch.matmul`` on the
-same W.
+same W (fused tCG) or for one ``index_add_`` on the same tensors (segment
+sums, whose plain twin is ``zeros`` + ``index_add_``).  Each kernel's
+``launches`` sums its counter over the main-path runs of phases 3, 4, 6, 7
+and 8, each read just after its run with the counters set to 0 just
+before.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -49,6 +68,28 @@ PRIMAL_A = 66.46483
 SCENE_B = dict(n_cameras=1934, n_points=7736, obs_per_camera=60, noise=1e-3,
                seed=0)
 PRIMAL_B = 0.3741873841357
+# scene B through the implicit operator.  Reference value: the JAX package
+# on the CPU at commit 0f67b61, solve_arrays(SchurQ.build(...),
+# max_rank=6, tol=1e-3, precision="mixed", inner_f32=True, edge_tf=True)
+# -> certified rank 3, 117 outer / 338 inner, lam_min 1.1e-5
+PRIMAL_B_IMPLICIT = 0.3742101204813012
+# scene C, the implicit size (benchmarks/n6k_bench.py's scene): E = 270,336
+SCENE_C = dict(n_cameras=6144, n_points=24576, obs_per_camera=40,
+               noise=1e-3, seed=0, long_range=4)
+# reference values, the JAX package on the CPU at commit 0f67b61:
+# xm2._solve_recover(xm2._assemble_operator(..., implicit="auto",
+# precision="mixed"), None, True, 5, 1e-1, 0.0, 1000.0, ..., "mixed") ->
+# certified rank 3, 248 outer / 3230 inner, and the recovered rotations'
+# errors against R_gt (radians, gauge-fixed to camera 0)
+PRIMAL_C = 0.8487572611415747
+ROT_C = dict(max=0.0005336820037861338, mean=0.00014647454844549592)
+# xm2_solve(scene B, implicit=True) at its defaults, same commit: the final
+# rotations' errors against R_gt
+ROT_XM2_B = dict(max=0.0012587838027017166, mean=0.00011281938882602603)
+RTOL_IMPLICIT = 5e-3
+ROT_SLACK = 1.5
+# the dense anchor of scene B, printed beside the implicit run's primal
+DENSE_ANCHOR_B = 0.3741873841357
 # the largest scene the dense variant's gate admits (n <= 512)
 SCENE_512 = dict(n_cameras=512, n_points=2048, obs_per_camera=60, noise=1e-3,
                  seed=0)
@@ -57,10 +98,11 @@ RTOL_PRIMAL = 1e-4
 # the host: 54 iterations at scene A, 12 at scene B)
 LONG_A, LONG_B = 85, 56
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
-# f32 FLOP/s outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
+# f64 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 F32 = 4  # bytes
 
 
@@ -185,8 +227,8 @@ def cw_bytes_ops(n: int, o: int):
     return nbytes, ops
 
 
-def bound_ms(nbytes, ops):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+def bound_ms(nbytes, ops, peak_ops=PEAK_F32):
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -381,6 +423,130 @@ def hold_kernels(C, inp, tag, with_cw: bool):
     return out
 
 
+def segsum_bytes_ops(rows: int, S: int, D: int, item: int, idx_words: int):
+    """Bytes a segment sum must move (values and ``idx_words`` int32 index
+    words read once, the (S, D) output written once) and its adds."""
+    return rows * D * item + idx_words * 4 + S * D * item, rows * D
+
+
+def hold_segsum(Q, dev, reps: int = 100):
+    """Both segment-sum kernels against their plain twin on the card, on the
+    operator's real orderings.  Returns one dict per case."""
+    import torch
+
+    from xmtpu_torch.ops import segsum as ss
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    E = int(Q.l_l.shape[0])
+    sched = ss.schedule_edges(Q.l_l.cpu().numpy().astype(np.int32),
+                              Q.n_landmarks)
+    ids_s, gidx, pad, blk, first, band = sched
+    ids_s = torch.as_tensor(ids_s, device=dev)
+    gidx = torch.as_tensor(gidx, device=dev)
+    live = torch.as_tensor(~pad, device=dev)
+    G = len(blk)
+    cases = []
+    for order, ids, off, S in (("l", Q.l_l, Q.bounds_l, Q.n_landmarks),
+                               ("f", Q.f_f, Q.bounds_f, Q.n_cameras)):
+        longest = int((off[1:] - off[:-1]).max())
+        for dt in (torch.float32, torch.float64):
+            eps = float(torch.finfo(dt).eps)
+            item = torch.finfo(dt).bits // 8
+            peak = PEAK_F32 if dt == torch.float32 else PEAK_F64
+            for D in (3, 6, 9, 18):
+                vals = torch.randn((E, D), generator=gen,
+                                   dtype=torch.float64).to(dt).to(dev)
+                # both versions sum each segment in some order: each lies
+                # within (L-1) eps sum|x| of the exact sum, L the longest
+                # segment
+                absum = ss.sorted_segment_sum_plain(vals.abs(), ids, S)
+                tol = 2.0 * longest * eps * absum
+                scale = float(absum.max())
+                runs = [("csr", lambda: ss.sorted_segment_sum(
+                            vals, ids, S, offsets=off),
+                         ss.sorted_segment_sum_plain(vals, ids, S),
+                         segsum_bytes_ops(E, S, D, item, S + 1))]
+                if order == "l":
+                    vs = (vals[gidx] * live[:, None]).contiguous()
+                    runs.append(("blocked", lambda: ss.sorted_segment_sum_blocked(
+                        vs, ids_s, S, blk, first, band),
+                        ss.sorted_segment_sum_plain(vs, ids_s, S),
+                        segsum_bytes_ops(G * ss.CHUNK, S, D, item,
+                                         G * ss.CHUNK + G)))
+                for kind, call, want, (nbytes, ops) in runs:
+                    a, b = call(), call()
+                    torch.cuda.synchronize()
+                    tag = f"{kind} {order} {str(dt)[6:]} D={D}"
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"segsum {tag}: two launches "
+                                             f"differ")
+                    err = (a - want).abs()
+                    if bool((err > tol).any()) or not bool(
+                            torch.isfinite(a).all()):
+                        raise AssertionError(
+                            f"segsum {tag}: {int((err > tol).sum())} entries "
+                            f"beyond 2 L eps sum|x| (max err "
+                            f"{float(err.max()):.3e})")
+                    src = vals if kind == "csr" else vs
+                    sid = ids if kind == "csr" else ids_s
+                    out = torch.zeros_like(want)
+                    cases.append(dict(
+                        kernel=kind, tag=tag, order=order, D=D,
+                        dtype=str(dt)[6:], max_abs_err=float(err.max()),
+                        max_rel_err=float(err.max()) / max(scale, 1e-30),
+                        ms=device_ms(call, reps),
+                        plain_ms=cuda_ms(lambda: ss.sorted_segment_sum_plain(
+                            src, sid, S), reps),
+                        library_ms=device_ms(
+                            lambda: out.index_add_(0, sid, src), reps),
+                        bound=bound_ms(nbytes, ops, peak)))
+    return cases
+
+
+def rotation_error_stats(R_real, R_gt, indices_all=None):
+    """Max and mean angular error (radians) of recovered c2w rotation blocks
+    ``R_real (3, 3N)`` against the scene's ``R_gt``, gauge-fixed to camera
+    0; ``indices_all`` maps original frames to the cleaned ones."""
+    from xmtpu_torch.pipeline.synthetic import rotation_errors
+
+    N = R_real.shape[1] // 3
+    B = R_real.reshape(3, N, 3).transpose(1, 0, 2)
+    gt = R_gt
+    if indices_all is not None:
+        gt = np.zeros((N, 3, 3))
+        live = indices_all > -1
+        gt[indices_all[live]] = R_gt[live]
+    e = rotation_errors(B, gt, gauge="left")
+    return dict(max=float(e.max()), mean=float(e.mean()))
+
+
+def check_rotations(tag, got, ref):
+    for k in ("max", "mean"):
+        if not got[k] <= ROT_SLACK * ref[k]:
+            raise AssertionError(f"{tag}: rotation error {k} {got[k]:.3e} "
+                                 f"beyond {ROT_SLACK} x the reference's "
+                                 f"{ref[k]:.3e}")
+
+
+def reset_counts():
+    from xmtpu_torch.ops import fused_tcg as ft
+    from xmtpu_torch.ops import segsum as ss
+
+    for k in (ft.tcg_step, ft.tcg_cw_dense, ss.sorted_segment_sum,
+              ss.sorted_segment_sum_blocked):
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    from xmtpu_torch.ops import fused_tcg as ft
+    from xmtpu_torch.ops import segsum as ss
+
+    return {k.__name__: k.launches
+            for k in (ft.tcg_step, ft.tcg_cw_dense, ss.sorted_segment_sum,
+                      ss.sorted_segment_sum_blocked)}
+
+
 def scene(params, device):
     from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
     from xmtpu_torch.pipeline.synthetic import make_scene
@@ -415,8 +581,12 @@ def run(dev, card: str) -> int:
     from xmtpu_torch.ops import fused_tcg as ft
     from xmtpu_torch.ops import manifold as mf
     from xmtpu_torch.solver import trust_region as tr
+    from xmtpu_torch.ops.schurq import SchurQ
+    from xmtpu_torch.pipeline import xm2
+    from xmtpu_torch.pipeline.synthetic import make_scene, make_scene_window
     from xmtpu_torch.solver.certificate import certify
     from xmtpu_torch.solver.staircase import solve_arrays
+    from xmtpu_torch.utils.timer import PhaseTimer
 
     log(f"[smoke] card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda} numpy {np.__version__}")
@@ -493,12 +663,13 @@ def run(dev, card: str) -> int:
 
     # ---- 3. scene A: the mixed certified staircase -------------------------
     log(f"[smoke] scene A: make_scene {gen_A:.2f} s, assembly {asm_A:.3f} s")
-    ft.tcg_step.launches = ft.tcg_cw_dense.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res_A = solve_arrays(C_A, max_rank=6, tol=1e-6, precision="mixed",
                          inner_f32=True, verbose=True, device=dev)
     torch.cuda.synchronize()
     wall_A = time.perf_counter() - t0
+    counts = {"A": read_counts()}
     launches_A = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
     log(f"[smoke] scene A: rank {res_A.rank} status {res_A.status} primal "
         f"{res_A.primal!r} gap {res_A.gap:.3e} lam_min {res_A.lam_min:.3e} "
@@ -525,12 +696,13 @@ def run(dev, card: str) -> int:
 
     # ---- 4. scene B: the split variant -------------------------------------
     log(f"[smoke] scene B: make_scene {gen_B:.2f} s, assembly {asm_B:.3f} s")
-    ft.tcg_step.launches = ft.tcg_cw_dense.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res_B = solve_arrays(C_B, max_rank=6, tol=1e-3, precision="mixed",
                          inner_f32=True, verbose=True, device=dev)
     torch.cuda.synchronize()
     wall_B = time.perf_counter() - t0
+    counts["B"] = read_counts()
     launches_B = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
     log(f"[smoke] scene B: rank {res_B.rank} status {res_B.status} primal "
         f"{res_B.primal!r} gap {res_B.gap:.3e} lam_min {res_B.lam_min:.3e} "
@@ -546,16 +718,142 @@ def run(dev, card: str) -> int:
         raise AssertionError(f"scene B: expected split-variant launches only, "
                              f"got step/cw {launches_B}")
 
-    # ---- 5. report ----------------------------------------------------------
+    del C_A, C_B
+
+    # ---- 5. scene C: the operator choice, and the segment-sum kernels -------
+    t0 = time.perf_counter()
+    scC = make_scene_window(**SCENE_C)
+    gen_C = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    Q_C, Abar_C, impl_C = xm2._assemble_operator(
+        scC.weights, scC.edges, scC.landmarks, True, "auto", device=dev)
+    torch.cuda.synchronize()
+    asm_C = time.perf_counter() - t0
+    log(f"[smoke] scene C: n={scC.N} m={scC.M} E={len(scC.edges)}; "
+        f"make_scene_window {gen_C:.2f} s, SchurQ build {asm_C:.2f} s, bands "
+        f"l/f {Q_C.band_l}/{Q_C.band_f}, device memory peak of the build "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (impl_C and isinstance(Q_C, SchurQ) and Abar_C is None):
+        raise AssertionError(f"scene C: the operator choice took "
+                             f"{type(Q_C).__name__}, not SchurQ")
+    seg_cases = hold_segsum(Q_C, dev)
+    for c in seg_cases:
+        log(f"[smoke] segsum {c['tag']}: err {c['max_abs_err']:.2e} "
+            f"(rel {c['max_rel_err']:.1e}) {c['ms']:.4f} ms plain "
+            f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
+            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]})")
+
+    # ---- 6. scene B through the implicit operator ---------------------------
+    scB = make_scene(**SCENE_B)
+    t0 = time.perf_counter()
+    Q_B = SchurQ.build(scB.weights, scB.edges, scB.landmarks, device=dev)
+    torch.cuda.synchronize()
+    build_B = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    res_Bi = solve_arrays(Q_B, max_rank=6, tol=1e-3, precision="mixed",
+                          inner_f32=True, edge_tf=True, verbose=True,
+                          device=dev)
+    torch.cuda.synchronize()
+    wall_Bi = time.perf_counter() - t0
+    counts["B implicit"] = read_counts()
+    log(f"[smoke] scene B implicit: build {build_B:.2f} s; rank {res_Bi.rank} "
+        f"status {res_Bi.status} primal {res_Bi.primal!r} (reference "
+        f"{PRIMAL_B_IMPLICIT!r}; {res_Bi.primal / DENSE_ANCHOR_B - 1:+.3e} "
+        f"from the dense anchor) gap {res_Bi.gap:.3e} lam_min "
+        f"{res_Bi.lam_min:.3e} outer {res_Bi.outer_iters} inner "
+        f"{res_Bi.total_inner} wall {wall_Bi:.2f} s launches "
+        f"{counts['B implicit']}")
+    for st in res_Bi.stages:
+        log(f"[smoke] scene B implicit stage {st}")
+    if not (res_Bi.certified and res_Bi.rank == 3 and res_Bi.status == 1
+            and not res_Bi.stages[-1]["fused"]):
+        raise AssertionError("scene B implicit: not certified at rank 3 by "
+                             "the matvec certificate")
+    if abs(res_Bi.primal - PRIMAL_B_IMPLICIT) > (RTOL_IMPLICIT
+                                                 * PRIMAL_B_IMPLICIT):
+        raise AssertionError(f"scene B implicit primal {res_Bi.primal} vs "
+                             f"{PRIMAL_B_IMPLICIT}")
+    del Q_B
+
+    # ---- 7. scene C: xm2's solve and recovery -------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res_C, rec_C = xm2._solve_recover(Q_C, None, True, 5, 1e-1, 0.0, 1000.0,
+                                      True, "mixed", device=dev)
+    torch.cuda.synchronize()
+    wall_C = time.perf_counter() - t0
+    counts["C"] = read_counts()
+    rot_C = rotation_error_stats(rec_C[0], scC.R_gt)
+    log(f"[smoke] scene C: rank {res_C.rank} status {res_C.status} primal "
+        f"{res_C.primal!r} (reference {PRIMAL_C!r}) gap {res_C.gap:.3e} "
+        f"lam_min {res_C.lam_min:.3e} outer {res_C.outer_iters} inner "
+        f"{res_C.total_inner}; solve+recover wall {wall_C:.2f} s; rotation "
+        f"errors {rot_C} (reference {ROT_C}); launches {counts['C']}; "
+        f"device memory peak of the solve "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for st in res_C.stages:
+        log(f"[smoke] scene C stage {st}")
+    if not (res_C.certified and res_C.rank == 3 and res_C.status == 1):
+        raise AssertionError("scene C: not certified at rank 3")
+    if abs(res_C.primal - PRIMAL_C) > RTOL_IMPLICIT * PRIMAL_C:
+        raise AssertionError(f"scene C primal {res_C.primal} vs {PRIMAL_C}")
+    check_rotations("scene C", rot_C, ROT_C)
+    if counts["C"]["sorted_segment_sum"] <= 0 or counts["C"]["tcg_step"] <= 0:
+        raise AssertionError(f"scene C: a kernel never launched {counts['C']}")
+    del Q_C
+
+    # ---- 8. xm2_solve(implicit=True) on scene B ----------------------------
+    timer = PhaseTimer()
+    reset_counts()
+    t0 = time.perf_counter()
+    res_X = xm2.xm2_solve(scB.edges.copy(), scB.weights.copy(),
+                          scB.landmarks.copy(), scB.rgbs.copy(), scB.N,
+                          scB.M, implicit=True, verbose=False, timer=timer,
+                          device=dev)
+    torch.cuda.synchronize()
+    wall_X = time.perf_counter() - t0
+    counts["xm2 B"] = read_counts()
+    rot_X = rotation_error_stats(res_X.R_real, scB.R_gt, res_X.indices_all)
+    log(f"[smoke] xm2_solve(implicit=True) scene B: wall {wall_X:.2f} s, lam "
+        f"{res_X.lam}, rotation errors {rot_X} (reference {ROT_XM2_B}); "
+        f"launches {counts['xm2 B']}; phases:")
+    for line in timer.report().splitlines():
+        log(f"[smoke]   {line}")
+    check_rotations("xm2_solve scene B", rot_X, ROT_XM2_B)
+
+    # ---- 9. report ------------------------------------------------------------
     a, b = held["A o=3"], held["B o=3"]
     step_err = worst([r[k] for r in held.values()
                       for k in ("step_err", "loop_err")])
     cw_err = worst([r["cw_err"] for r in held.values() if "cw_err" in r])
+
+    def total(name):
+        return sum(c[name] for c in counts.values())
+
+    def seg_row(kind, name, replaces):
+        mine = [c for c in seg_cases if c["kernel"] == kind]
+        rep = next(c for c in mine if c["order"] == "l" and c["D"] == 6
+                   and c["dtype"] == "float32")
+        return dict(
+            name=name, route="cuda", source="xmtpu_torch/csrc/segsum.cu",
+            replaces=replaces, launches=total(name),
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            max_rel_err=max(c["max_rel_err"] for c in mine),
+            ms=rep["ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound"][0], bound_by=rep["bound"][1],
+            library_ms=rep["library_ms"],
+            shape=f"scene C landmark ordering, E={rep_E}, S={n_land}, D=6 "
+                  f"f32; all {len(mine)} cases on the [smoke] segsum lines")
+
+    rep_E, n_land = len(scC.edges), scC.M
     kernels = [
         dict(name="tcg_step", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",
              replaces="xmtpu/ops/pallas_tcg.py:98",
-             launches=launches_A[0] + launches_B[0],
+             launches=total("tcg_step"),
              max_abs_err=step_err[0], max_rel_err=step_err[1],
              ms=b["step_ms"], enqueue_ms=b["step_enqueue_ms"],
              plain_ms=b["step_plain_ms"],
@@ -566,7 +864,7 @@ def run(dev, card: str) -> int:
         dict(name="tcg_cw_dense", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",
              replaces="xmtpu/ops/pallas_tcg.py:109",
-             launches=launches_A[1] + launches_B[1],
+             launches=total("tcg_cw_dense"),
              max_abs_err=cw_err[0], max_rel_err=cw_err[1],
              ms=a["cw_ms"], enqueue_ms=a["cw_enqueue_ms"],
              plain_ms=a["cw_plain_ms"],
@@ -574,7 +872,11 @@ def run(dev, card: str) -> int:
              library_ms=a["cw_library_ms"],
              shape=f"n={nA} o=3 (scene A); n=512: "
                    f"{held['n512 o=3']['cw_ms']:.4f} ms"),
+        seg_row("csr", "sorted_segment_sum", "xmtpu/ops/pallas_segsum.py:46"),
+        seg_row("blocked", "sorted_segment_sum_blocked",
+                "xmtpu/ops/pallas_segsum.py:222"),
     ]
+    log(f"[smoke] launches per main-path run: {counts}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The fused-tCG CUDA kernels against their plain PyTorch twins.
+"""The CUDA kernels (fused tCG, sorted segment sums) against their plain
+PyTorch twins.
 
 This file imports neither JAX nor ``xmtpu``, so it also runs on the machine
 with the card, where JAX is absent (``--noconftest`` skips the suite's
@@ -7,10 +8,13 @@ JAX set-up):
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 Tests that need the card carry the ``cuda`` marker and skip without one.
-Kernel and twin run the same f32 recurrences with different reduction
-orders: arrays agree at the Pallas suite's f32 tolerances (``atol 2e-4
-scale, rtol 2e-3`` for v, ``5e-4 scale, 5e-3`` for Hv), end reason and
-iteration count exactly, on these well-separated problems.
+Fused tCG: kernel and twin run the same f32 recurrences with different
+reduction orders: arrays agree at the Pallas suite's f32 tolerances
+(``atol 2e-4 scale, rtol 2e-3`` for v, ``5e-4 scale, 5e-3`` for Hv), end
+reason and iteration count exactly, on these well-separated problems.
+Segment sums: the kernels add each segment's rows in row order, as the
+CPU twin does, so they agree to a few ulps of the absolute-sum scale
+(``1e-6`` f32, ``1e-14`` f64 relative to it) and repeat bit for bit.
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ import torch
 
 from xmtpu_torch.ops import fused_tcg as ft
 from xmtpu_torch.ops import manifold as mf
+from xmtpu_torch.ops import segsum as ss
 from xmtpu_torch.ops.qop import DenseQ
 from xmtpu_torch.solver import trust_region as tr
 
@@ -159,3 +164,118 @@ def test_wrappers_reject_bad_tensors_on_card(cuda_device):
     with pytest.raises(ValueError):
         ft.tcg_step(*dict(const, Rt=const["Rt"].cpu()).values(), *state, sc,
                     cfgsc, 25)
+
+
+# ------------------------------------------------------ segment sums --
+
+def _seg_case(E, S, D, dtype, seed=0, gaps=False):
+    rng = np.random.default_rng(seed)
+    hi = S // 3 if gaps else S          # gaps: the top two thirds stay empty
+    ids = np.sort(rng.integers(0, hi, E)).astype(np.int32)
+    if gaps:
+        ids[::7] = ids[::7] // 2 * 2    # and every odd segment thins out
+        ids = np.sort(ids)
+    vals = rng.normal(size=(E, D)).astype(dtype)
+    return vals, ids
+
+
+def _seg_ref(vals, ids, S):
+    out = np.zeros((S, vals.shape[1]), np.float64)
+    np.add.at(out, ids, vals.astype(np.float64))
+    return out
+
+
+def _seg_tol(dtype, vals, ids, S):
+    """Absolute tolerance: ulps of each segment's absolute sum."""
+    scale = _seg_ref(np.abs(vals), ids, S).max()
+    return (1e-6 if dtype == np.float32 else 1e-14) * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segsum_twin_matches_numpy(dtype):
+    vals, ids = _seg_case(3000, 700, 6, dtype, gaps=True)
+    out = ss.sorted_segment_sum(torch.tensor(vals), torch.tensor(ids), 700,
+                                ss.max_band(ids))
+    assert out.dtype == torch.from_numpy(vals).dtype
+    np.testing.assert_allclose(out.numpy(), _seg_ref(vals, ids, 700),
+                               atol=_seg_tol(dtype, vals, ids, 700), rtol=0)
+
+
+def test_segsum_blocked_twin_matches_numpy():
+    vals, ids = _seg_case(5000, 9000, 3, np.float64, seed=2)
+    ids_s, gidx, pad, blk, first, band = ss.schedule_edges(ids, 9000)
+    vs = vals[gidx] * ~pad[:, None]
+    out = ss.sorted_segment_sum_blocked(torch.tensor(vs), torch.tensor(ids_s),
+                                        9000, blk, first, band)
+    np.testing.assert_allclose(out.numpy(), _seg_ref(vals, ids, 9000),
+                               atol=_seg_tol(np.float64, vals, ids, 9000),
+                               rtol=0)
+
+
+def test_segment_offsets():
+    ids = torch.tensor([0, 0, 2, 2, 2, 5], dtype=torch.int64)
+    off = ss.segment_offsets(ids, 7)
+    assert off.dtype == torch.int32
+    assert off.tolist() == [0, 2, 2, 5, 5, 5, 6, 6]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 6, 9, 18])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segsum_kernel_matches_twin_on_card(dtype, D, cuda_device):
+    vals, ids = _seg_case(20000, 2500, D, dtype, seed=D, gaps=True)
+    ref = ss.sorted_segment_sum(torch.tensor(vals), torch.tensor(ids), 2500)
+    v, i = torch.tensor(vals, device=cuda_device), torch.tensor(
+        ids, device=cuda_device)
+    off = ss.segment_offsets(i, 2500)
+    n0 = ss.sorted_segment_sum.launches
+    a = ss.sorted_segment_sum(v, i, 2500, offsets=off)
+    b = ss.sorted_segment_sum(v, i, 2500, offsets=off)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_sum.launches == n0 + 2
+    assert torch.equal(a, b)                      # same bits every run
+    assert int((a[ref.abs().sum(1) == 0] != 0).sum()) == 0   # empty segments
+    np.testing.assert_allclose(a.cpu().numpy(), ref.numpy(),
+                               atol=_seg_tol(dtype, vals, ids, 2500), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("E,S,chunk,sb", [(30000, 100000, 512, 2048),
+                                          (4096, 512, 128, 128),
+                                          (3, 10000, 512, 2048)])
+def test_segsum_blocked_kernel_matches_twin_on_card(dtype, E, S, chunk, sb,
+                                                    cuda_device):
+    """Sparse ids over many blocks, chunks straddling small blocks, and a
+    huge empty middle (edge-less blocks come out zero)."""
+    vals, ids = _seg_case(E, S, 2, dtype, seed=E)
+    ids_s, gidx, pad, blk, first, band = ss.schedule_edges(
+        ids, S, chunk=chunk, seg_block=sb)
+    vs = vals[gidx] * ~pad[:, None]
+    ref = ss.sorted_segment_sum_blocked(torch.tensor(vs), torch.tensor(ids_s),
+                                        S, blk, first, band, sb, chunk)
+    v = torch.tensor(vs, device=cuda_device)
+    i = torch.tensor(ids_s, device=cuda_device)
+    n0 = ss.sorted_segment_sum_blocked.launches
+    a = ss.sorted_segment_sum_blocked(v, i, S, blk, first, band, sb, chunk)
+    b = ss.sorted_segment_sum_blocked(v, i, S, blk, first, band, sb, chunk)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_sum_blocked.launches == n0 + 2
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), ref.numpy(),
+                               atol=_seg_tol(dtype, vals, ids, S), rtol=0)
+    assert int(torch.count_nonzero(a)) == int(torch.count_nonzero(ref))
+
+
+@pytest.mark.cuda
+def test_segsum_wrappers_reject_bad_tensors_on_card(cuda_device):
+    vals, ids = _seg_case(100, 10, 3, np.float32)
+    v = torch.tensor(vals, device=cuda_device)
+    i = torch.tensor(ids, device=cuda_device)
+    with pytest.raises(TypeError):
+        ss.sorted_segment_sum(v.half(), i, 10)
+    with pytest.raises(ValueError):
+        ss.sorted_segment_sum(v.t().contiguous().t(), i, 10)
+    with pytest.raises(TypeError):
+        ss.sorted_segment_sum(v, i, 10, offsets=ss.segment_offsets(
+            i, 10).long())

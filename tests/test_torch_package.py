@@ -20,7 +20,10 @@ MODULES = ["xmtpu_torch", "xmtpu_torch.XM", "xmtpu_torch.config",
            "xmtpu_torch.convert", "xmtpu_torch._build",
            "xmtpu_torch.ops.fused_tcg", "xmtpu_torch.ops.lanczos",
            "xmtpu_torch.ops.manifold", "xmtpu_torch.ops.qop",
-           "xmtpu_torch.pipeline.synthetic",
+           "xmtpu_torch.ops.schurq", "xmtpu_torch.ops.segsum",
+           "xmtpu_torch.pipeline.graph", "xmtpu_torch.pipeline.recover",
+           "xmtpu_torch.pipeline.synthetic", "xmtpu_torch.pipeline.xm2",
+           "xmtpu_torch.runtime", "xmtpu_torch.utils.timer",
            "xmtpu_torch.assembly.creatematrix",
            "xmtpu_torch.solver.certificate", "xmtpu_torch.solver.checkpoint",
            "xmtpu_torch.solver.staircase", "xmtpu_torch.solver.trust_region",
@@ -81,9 +84,12 @@ def _tiny(tmp_path):
 
 @pytest.mark.parametrize("entry", ["solve_arrays", "solve", "solve_with_init",
                                    "solve_rank3", "create_matrix_arrays",
-                                   "certify", "trust_region_solve"])
+                                   "certify", "trust_region_solve",
+                                   "SchurQ.build", "xm2_solve"])
 def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     import xmtpu_torch
+    from xmtpu_torch.ops.schurq import SchurQ
+    from xmtpu_torch.pipeline.xm2 import xm2_solve
 
     sc = _tiny(tmp_path)
     calls = {
@@ -97,6 +103,11 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
                                                0.0, 1.0),
         "trust_region_solve": lambda: xmtpu_torch.trust_region_solve(
             np.eye(12), np.broadcast_to(np.eye(3), (4, 3, 3)), np.ones(4)),
+        "SchurQ.build": lambda: SchurQ.build(sc.weights, sc.edges,
+                                             sc.landmarks),
+        "xm2_solve": lambda: xm2_solve(sc.edges, sc.weights, sc.landmarks,
+                                       sc.rgbs, sc.N, sc.M, implicit=True,
+                                       verbose=False),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -5,10 +5,13 @@ and public names, written as eager PyTorch on tensors, with the reference's
 Pallas TPU kernels replaced by hand-written CUDA C++ kernels for ``sm_90a``
 (``xmtpu_torch/csrc``), built with ``nvcc`` at first use.
 
-This slice covers the certified dense rank staircase: ``.bin`` I/O, dense
-``Q`` assembly, the product manifold, the RTR-tCG trust region with its mixed
-f32/f64 ladder (f32 tCG iterations through the fused kernels), the dense
-dual certificate and the rank staircase.
+Ported so far: the certified dense rank staircase (``.bin`` I/O, dense
+``Q`` assembly, the product manifold, the RTR-tCG trust region with its
+mixed f32/f64 ladder — f32 tCG iterations through the fused kernels — the
+dense dual certificate and the rank staircase), and the implicit path past
+dense memory (the factored ``SchurQ`` operator and its two-float variants,
+with every sorted segment sum on the card through a hand-written kernel, the
+matvec certificate, view-graph cleanup, recovery and the XM^2 pipeline).
 
 Entry points take ``device=None``, meaning the CUDA card; they raise when no
 card is present unless the caller passes ``device="cpu"``.  The package

@@ -5,10 +5,14 @@ solver state.  These functions map them across as numpy arrays, so both
 packages can run from identical state (the parity tests) and a run can move
 between them.  Nothing here imports JAX: reference objects are read through
 their field names (``_asdict()`` of a NamedTuple, or a plain dict) and
-``np.asarray`` of each value.
+``np.asarray`` of each value.  Implicit operators cross the same way
+(:func:`schurq_from_numpy`), so a test can hold the port's ``apply`` apart
+from its ``build``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -33,7 +37,52 @@ def qop_from_numpy(C, device=None, psd_hint: bool = False) -> DenseQ:
 
 
 def _fields(x) -> dict:
-    return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
+    if hasattr(x, "_asdict"):
+        return dict(x._asdict())
+    if dataclasses.is_dataclass(x):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    return dict(x)
+
+
+def schurq_from_numpy(x, device=None, kind: "str | None" = None):
+    """An ``xmtpu`` implicit operator (``SchurQ``, ``SchurQEdgeF32`` or
+    ``SchurQTF``: the dataclass itself or a dict of its fields) as the
+    port's operator of the same name on ``device`` (None = the CUDA card).
+
+    Arrays are carried across as numpy (ids as int64, the CSR boundaries
+    as int32); static fields (``psd_ok``, the bands) are kept and the
+    reference's interpret flag is dropped.  ``kind`` names the class when
+    ``x`` is a dict.  The two-float classes gain the ``bounds_l`` /
+    ``bounds_f`` fields of the port, rebuilt from their sorted ids.
+    """
+    from xmtpu_torch.ops import schurq as sq
+
+    cls = getattr(sq, kind or type(x).__name__)
+    d = _fields(x)
+    dev = resolve_device(device)
+    ids = ("f_l", "l_l", "f_f", "l_f")
+    if "bounds_l" not in d:
+        f_f, l_l = np.asarray(d["f_f"]), np.asarray(d["l_l"])
+        M, N = len(np.asarray(d["inv_q3"])), len(np.asarray(d["Q1"]))
+        d["bounds_l"] = np.searchsorted(l_l, np.arange(M + 1))
+        d["bounds_f"] = np.searchsorted(f_f, np.arange(N + 1))
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = d[f.name]
+        if f.name in ids:
+            kw[f.name] = torch.as_tensor(np.array(v, np.int64), device=dev)
+        elif f.name in ("bounds_l", "bounds_f"):
+            kw[f.name] = torch.as_tensor(np.array(v, np.int32), device=dev)
+        elif f.name == "psd_ok":
+            kw[f.name] = bool(v)
+        elif f.name in ("band_l", "band_f"):
+            kw[f.name] = int(v)
+        else:
+            kw[f.name] = torch.as_tensor(np.array(v), device=dev)
+    q = cls(**kw)
+    if hasattr(x, "vt_resid_ratio"):
+        q.vt_resid_ratio = float(x.vt_resid_ratio)
+    return q
 
 
 def tr_state_from_numpy(x, device=None):

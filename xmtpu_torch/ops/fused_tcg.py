@@ -208,11 +208,12 @@ def _lib():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> int:
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> int:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():

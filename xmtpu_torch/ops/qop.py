@@ -2,9 +2,9 @@
 
 PyTorch counterpart of ``xmtpu/ops/qop.py``.  Every hot operation in the
 solver touches Q only through the product ``Q @ Y`` with a thin (3n, o)
-right-hand side, so the operator is a small class with ``apply``.  This
-slice ports the dense operator; the two-float and implicit (SchurQ)
-operators arrive with the implicit slice.
+right-hand side, so the operator is a small class with ``apply``: the
+dense ``DenseQ``, its two-float form ``DenseQTF``, and the implicit
+``SchurQ`` family of ``ops/schurq.py``.
 """
 
 from __future__ import annotations
@@ -80,13 +80,10 @@ def q_apply(Q, Y: torch.Tensor) -> torch.Tensor:
 
 def as_qop(Q, device=None) -> QOperator:
     """Wrap a raw matrix (tensor or array) as a ``DenseQ`` (float types
-    kept, others cast to float64); with ``device``, move it there."""
-    if isinstance(Q, DenseQ):
-        if device is not None and Q.C.device != torch.device(device):
-            return DenseQ(Q.C.to(device), Q.psd_hint)
-        return Q
+    kept, others cast to float64); with ``device``, move it (or an
+    operator's tensors) there."""
     if isinstance(Q, QOperator):
-        return Q
+        return Q if device is None else move_qop(Q, device)
     if isinstance(Q, np.ndarray) and not Q.flags.writeable:
         Q = Q.copy()             # torch.as_tensor wants a writable buffer
     C = torch.as_tensor(Q, device=device)
@@ -95,17 +92,79 @@ def as_qop(Q, device=None) -> QOperator:
     return DenseQ(C)
 
 
-def cast_qop(Q, dtype) -> QOperator:
-    """Cast an operator's floating-point payload to ``dtype``.
+def split_f32(x: torch.Tensor):
+    """Two-float split: ``x ~= hi + lo`` with both parts f32.  The lo part
+    carries the bits below f32's 24-bit mantissa."""
+    hi = x.to(torch.float32)
+    return hi, (x - hi.to(x.dtype)).to(torch.float32)
 
-    Casting below f64 CLEARS any structural-PSD claim: the cast's ~1e-7
-    relative rounding exceeds the certificate's acceptance bound.
+
+def tf_gemm(ah: torch.Tensor, al: torch.Tensor, y: torch.Tensor):
+    """Two-float GEMM ``(ah + al) @ y`` to first order, combined in
+    ``y``'s dtype: ``ah @ [y_hi | y_lo]`` as one f32 GEMM, ``al @ y_hi`` as a
+    second; the lo*lo term (~1e-15 relative) is dropped, as in the
+    reference."""
+    yh = y.to(torch.float32)
+    yl = (y - yh.to(y.dtype)).to(torch.float32)
+    a = ah @ torch.cat([yh, yl], dim=1)
+    b = al @ yh
+    o = y.shape[1]
+    return a[:, :o].to(y.dtype) + a[:, o:].to(y.dtype) + b.to(y.dtype)
+
+
+@dataclass
+class DenseQTF(QOperator):
+    """Two-float dense operator: the f64 cost matrix stored as an f32 hi/lo
+    pair, applied with :func:`tf_gemm` (~1.5e-7 relative noise floor).
+    ``Qdiag``: the exact f64 diagonal blocks, for preconditioning."""
+
+    Ch: torch.Tensor
+    Cl: torch.Tensor
+    Qdiag: torch.Tensor
+
+    @property
+    def dim(self) -> int:
+        return self.Ch.shape[0]
+
+    def apply(self, Y: torch.Tensor) -> torch.Tensor:
+        return tf_gemm(self.Ch, self.Cl, Y)
+
+    def diag_blocks(self):
+        return self.Qdiag
+
+
+def dense_two_float(C) -> DenseQTF:
+    """The two-float dense operator of an f64 matrix / ``DenseQ``."""
+    Q = as_qop(C)
+    ch, cl = split_f32(Q.C)
+    return DenseQTF(ch, cl, Q.diag_blocks().clone())
+
+
+def cast_qop(Q, dtype) -> QOperator:
+    """Cast an operator's floating-point payload to ``dtype`` (index
+    tensors and static fields untouched; the implicit operators keep their
+    segment-sum bands).
+
+    Casting below f64 CLEARS any structural-PSD claim (``DenseQ.psd_hint``,
+    ``SchurQ.psd_ok``): the cast's ~1e-7 relative rounding exceeds the
+    certificate's acceptance bound.
     """
     Q = as_qop(Q)
-    if not isinstance(Q, DenseQ):
-        raise NotImplementedError(
-            f"cast_qop: {type(Q).__name__} is not ported yet (dense only)")
-    Qc = DenseQ(Q.C.to(dtype), Q.psd_hint)
-    if dtype != torch.float64 and Qc.psd_hint:
-        Qc = dataclasses.replace(Qc, psd_hint=False)
-    return Qc
+    upd = {f.name: v.to(dtype) for f in dataclasses.fields(Q)
+           if isinstance(v := getattr(Q, f.name), torch.Tensor)
+           and v.is_floating_point()}
+    if dtype != torch.float64:
+        for flag in ("psd_hint", "psd_ok"):
+            if getattr(Q, flag, False):
+                upd[flag] = False
+    return dataclasses.replace(Q, **upd)
+
+
+def move_qop(Q, device) -> QOperator:
+    """The operator with every tensor field on ``device`` (the operator
+    itself when they all are)."""
+    dev = torch.device(device)
+    upd = {f.name: v.to(dev) for f in dataclasses.fields(Q)
+           if isinstance(v := getattr(Q, f.name), torch.Tensor)
+           and v.device != dev}
+    return dataclasses.replace(Q, **upd) if upd else Q

@@ -1,0 +1,236 @@
+"""Sorted segment sums: hand-written CUDA kernels + plain twins.
+
+Counterpart of ``xmtpu/ops/pallas_segsum.py``.  The implicit operator
+(``ops/schurq.py``) reduces per-edge arrays into per-landmark and per-frame
+sums over edges kept sorted by segment.  Two kernels in
+``xmtpu_torch/csrc/segsum.cu``:
+
+* ``sorted_segment_sum`` replaces ``pallas_segsum._kernel``: a segmented
+  reduction over CSR offsets, one thread per output element summing its
+  segment's rows in row order (no float atomics, same bits every run).
+* ``sorted_segment_sum_blocked`` replaces ``pallas_segsum._kernel_blocked``:
+  the same sum on the scheduled layout of :func:`plan_blocks` /
+  :func:`schedule_edges`, as per-visit partials added in visit order.
+
+The plain twin of both is ``torch.zeros(S, D).index_add_(0, ids, vals)``.
+Wrapper rule (as in ``ops/fused_tcg.py``): CPU tensors take the twin; CUDA
+tensors launch the kernel (counted in the wrapper's ``launches``) or raise.
+
+The host helpers ``max_band``, ``plan_blocks``, ``schedule_edges``, ``CHUNK``
+and ``SEG_BLOCK`` are copies of the reference's, so both packages schedule
+the same layout.  The CUDA kernels need no band: ``band`` is kept in the
+signatures so callers port unchanged.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from xmtpu_torch.ops.fused_tcg import _check, _on_cpu, _raise_on
+
+CHUNK = 512
+SEG_BLOCK = 2048
+
+
+def max_band(seg_ids: np.ndarray, chunk: int = CHUNK) -> int:
+    """Largest number of distinct segments spanned by any length-``chunk``
+    window of the sorted ``seg_ids`` — the reference kernel's ``band``."""
+    seg_ids = np.asarray(seg_ids)
+    E = len(seg_ids)
+    best = 1
+    for start in range(0, E, chunk):
+        w = seg_ids[start:start + chunk]
+        best = max(best, int(w[-1] - w[0]) + 1)
+    return best
+
+
+def plan_blocks(seg_ids: np.ndarray, num_segments: int, chunk: int = CHUNK,
+                seg_block: int = SEG_BLOCK):
+    """Host-side schedule for :func:`sorted_segment_sum_blocked` (a copy of
+    the reference's): split the sorted edge stream at output-block
+    boundaries, re-chunk each block's span to ``chunk`` rows, and add one
+    empty visit per edge-less block.
+
+    Returns ``(gather_idx (G*chunk,), pad_mask (G*chunk,), blk (G,),
+    first (G,), band)``.
+    """
+    seg_ids = np.asarray(seg_ids)
+    E = len(seg_ids)
+    nb = -(-num_segments // seg_block)
+    blk_edge_start = np.searchsorted(
+        seg_ids, np.arange(nb, dtype=np.int64) * seg_block)
+    blk_edge_end = np.append(blk_edge_start[1:], E)
+    spans, blks = [], []
+    for b in range(nb):
+        s, e = int(blk_edge_start[b]), int(blk_edge_end[b])
+        if s == e:
+            spans.append((s, s))          # empty visit: zero-init the block
+            blks.append(b)
+        else:
+            for c0 in range(s, e, chunk):
+                spans.append((c0, min(c0 + chunk, e)))
+                blks.append(b)
+    G = len(spans)
+    s_arr = np.asarray([s for s, _ in spans], np.int64)
+    e_arr = np.asarray([e for _, e in spans], np.int64)
+    blk = np.asarray(blks, np.int32)
+    first = np.ones(G, np.int32)
+    first[1:] = (blk[1:] != blk[:-1]).astype(np.int32)
+    gidx = s_arr[:, None] + np.arange(chunk, dtype=np.int64)[None, :]
+    pad = gidx >= e_arr[:, None]
+    gidx = np.clip(np.minimum(gidx, np.maximum(e_arr, 1)[:, None] - 1),
+                   0, max(E - 1, 0))
+    nonempty = e_arr > s_arr
+    band = 1
+    if nonempty.any():
+        band = int((seg_ids[e_arr[nonempty] - 1]
+                    - seg_ids[s_arr[nonempty]]).max()) + 1
+    assert band <= seg_block
+    return gidx.ravel(), pad.ravel(), blk, first, band
+
+
+def schedule_edges(seg_ids: np.ndarray, num_segments: int,
+                   chunk: int = CHUNK, seg_block: int = SEG_BLOCK):
+    """Scheduled segment-id array + gather/pad plan for laying out per-edge
+    payloads in the blocked layout.  Returns ``(ids_sched (G*chunk,), gidx,
+    pad, blk, first, band)``."""
+    seg_ids = np.asarray(seg_ids)
+    gidx, pad, blk, first, band = plan_blocks(seg_ids, num_segments, chunk,
+                                              seg_block)
+    ids_sched = seg_ids[gidx] if len(seg_ids) else np.zeros_like(gidx)
+    blk_first_per_row = np.repeat(blk.astype(np.int64) * seg_block, chunk)
+    ids_sched = np.where(pad, blk_first_per_row, ids_sched).astype(np.int32)
+    return ids_sched, gidx, pad, blk, first, band
+
+
+def segment_offsets(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(S+1,) int32 CSR offsets of sorted ``seg_ids``: rows
+    ``[off[s], off[s+1])`` hold segment ``s`` (on the ids' device)."""
+    ids = seg_ids.contiguous()
+    keys = torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device)
+    return torch.searchsorted(ids, keys).to(torch.int32)
+
+
+# ------------------------------------------------------ plain version --
+
+def sorted_segment_sum_plain(vals: torch.Tensor, seg_ids: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """Plain twin of both kernels: ``(S, D)`` sums of the rows of ``vals``
+    by ``seg_ids`` through ``index_add_`` (in row order on the CPU, by
+    atomics on CUDA)."""
+    out = torch.zeros((num_segments,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg_ids.to(torch.int64), vals)
+
+
+# ------------------------------------------------------------ wrappers --
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    from xmtpu_torch import _build
+
+    lib = _build.load("segsum")
+    if not getattr(lib, "_xm_typed", False):
+        for name in ("xm_segsum_f32", "xm_segsum_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _P, _P, _I, _I, _P]
+            fn.restype = _I
+        for name in ("xm_segsum_blocked_f32", "xm_segsum_blocked_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+            fn.restype = _I
+        lib._xm_typed = True
+    return lib
+
+
+def _suffix(vals: torch.Tensor, what: str) -> str:
+    if vals.dim() != 2:
+        raise ValueError(f"{what}: vals must be (E, D), got {tuple(vals.shape)}")
+    if vals.dtype == torch.float32:
+        return "f32"
+    if vals.dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"{what}: dtype {vals.dtype}, expected float32/float64")
+
+
+def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int, band: int = 0,
+                       offsets: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Segment sum over sorted ``seg_ids``: ``(S, D)`` from ``vals (E, D)``.
+
+    ``offsets``: the ``(S+1,)`` int32 CSR offsets of ``seg_ids`` (computed
+    here when absent); the CUDA kernel reads them instead of the ids.
+    ``band`` is the reference kernel's bound (:func:`max_band`); neither
+    version needs it.
+    """
+    if _on_cpu(vals, seg_ids):
+        return sorted_segment_sum_plain(vals, seg_ids, num_segments)
+    sfx = _suffix(vals, "sorted_segment_sum")
+    dev = vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_segment_sum: unsupported device {dev}")
+    E, D = vals.shape
+    if offsets is None:
+        offsets = segment_offsets(seg_ids, num_segments)
+    out = torch.empty((num_segments, D), dtype=vals.dtype, device=dev)
+    ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
+            _check("offsets", offsets, (num_segments + 1,), dev, torch.int32),
+            _check("out", out, (num_segments, D), dev, vals.dtype)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(_lib(), f"xm_segsum_{sfx}")(*ptrs, num_segments, D, stream)
+    _raise_on(rc, "sorted_segment_sum")
+    sorted_segment_sum.launches += 1
+    return out
+
+
+sorted_segment_sum.launches = 0
+
+
+def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
+                               num_segments: int, blk, first, band: int,
+                               seg_block: int = SEG_BLOCK,
+                               chunk: int = CHUNK) -> torch.Tensor:
+    """Segment sum on the SCHEDULED layout of :func:`plan_blocks`
+    (``vals``/``seg_ids`` of ``G*chunk`` rows; padding rows carry the
+    block's first id and zero values).  ``blk``/``first`` are the
+    schedule's (G,) arrays; the CUDA kernel reads ``blk`` (each output
+    element starts from zero, so ``first`` is not needed)."""
+    G = len(blk)
+    E = vals.shape[0]
+    if E != G * chunk:
+        raise ValueError(f"sorted_segment_sum_blocked: {E} rows, expected "
+                         f"G*chunk = {G}*{chunk}")
+    if _on_cpu(vals, seg_ids):
+        return sorted_segment_sum_plain(vals, seg_ids, num_segments)
+    sfx = _suffix(vals, "sorted_segment_sum_blocked")
+    dev = vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_segment_sum_blocked: unsupported device "
+                         f"{dev}")
+    if not 1 <= band <= seg_block:
+        raise ValueError(f"sorted_segment_sum_blocked: band {band} outside "
+                         f"1..{seg_block}")
+    D = vals.shape[1]
+    blk_t = torch.as_tensor(np.asarray(blk), dtype=torch.int32, device=dev)
+    partial = torch.empty((G, band, D), dtype=vals.dtype, device=dev)
+    out = torch.empty((num_segments, D), dtype=vals.dtype, device=dev)
+    ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
+            _check("seg_ids", seg_ids, (E,), dev, torch.int32),
+            _check("blk", blk_t, (G,), dev, torch.int32),
+            _check("partial", partial, (G, band, D), dev, vals.dtype),
+            _check("out", out, (num_segments, D), dev, vals.dtype)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(_lib(), f"xm_segsum_blocked_{sfx}")(
+        *ptrs, G, num_segments, chunk, seg_block, band, D, stream)
+    _raise_on(rc, "sorted_segment_sum_blocked")
+    sorted_segment_sum_blocked.launches += 1
+    return out
+
+
+sorted_segment_sum_blocked.launches = 0

@@ -1,9 +1,10 @@
 """Synthetic SBA problem generator (pure numpy).
 
-A copy of ``make_scene``, ``random_rotation`` and ``rotation_errors`` from
-``xmtpu/pipeline/synthetic.py``, so the port never imports the JAX package.
-It makes the same random draws in the same order and returns identical
-arrays for the same arguments (a test checks this against the reference).
+A copy of ``make_scene``, ``make_scene_window``, ``random_rotation`` and
+``rotation_errors`` from ``xmtpu/pipeline/synthetic.py``, so the port never
+imports the JAX package.  It makes the same random draws in the same order
+and returns identical arrays for the same arguments (tests check this
+against the reference).
 
 Observation model: camera i has camera-to-world rotation ``R_i``, center
 ``t_i`` and depth scale ``s_i``; landmark j sits at world point ``p_j``; the
@@ -112,3 +113,47 @@ def rotation_errors(R_est_blocks: np.ndarray, R_gt: np.ndarray,
     prod = np.einsum("nab,ncb->nac", rel_est, rel_gt)
     cos = np.clip((np.trace(prod, axis1=1, axis2=2) - 1) / 2, -1, 1)
     return np.arccos(cos)
+
+
+def make_scene_window(n_cameras: int, n_points: int, obs_per_camera: int = 20,
+                      noise: float = 0.0, scale_spread: float = 0.3,
+                      seed: int = 0, long_range: int = 0) -> SyntheticScene:
+    """Vectorized large-scale scene: camera i observes a contiguous
+    wrap-around window of ``obs_per_camera`` landmarks starting at
+    ``floor(i M / N)``, plus ``long_range`` uniformly random landmarks
+    (which collapse the ring's graph diameter to O(log N) and restore
+    realistic conditioning).  O(E) numpy."""
+    rng = np.random.default_rng(seed)
+    N, M, k = n_cameras, n_points, obs_per_camera
+    assert N * k >= 2 * M, "need >= 2 observations per landmark on average"
+
+    p = rng.normal(size=(M, 3)) * 2.0
+    # vectorized batch of random rotations (QR of gaussian blocks)
+    A = rng.normal(size=(N, 3, 3))
+    Q, R = np.linalg.qr(A)
+    Q = Q * np.sign(np.einsum("nii->ni", R))[:, None, :]
+    det = np.linalg.det(Q)
+    Q[det < 0, :, 0] *= -1.0
+    Rot = Q
+    Rot[0] = np.eye(3)
+    t = rng.normal(size=(N, 3))
+    t[0] = 0.0
+    s = np.exp(rng.normal(size=N) * scale_spread)
+    s[0] = 1.0
+
+    start = (np.arange(N, dtype=np.int64) * M) // N
+    f = np.repeat(np.arange(N, dtype=np.int64), k)
+    l = (start[:, None] + np.arange(k, dtype=np.int64)[None, :]) % M
+    l = l.ravel()
+    if long_range:
+        f = np.concatenate([f, np.repeat(np.arange(N, dtype=np.int64),
+                                         long_range)])
+        l = np.concatenate([l, rng.integers(0, M, size=N * long_range)])
+
+    x = np.einsum("eba,eb->ea", Rot[f], p[l] - t[f]) / s[f][:, None]
+    if noise > 0:
+        x = x + rng.normal(size=x.shape) * noise
+    edges = np.stack([f + 1, l + 1], axis=1)
+    w = np.ones(len(edges))
+    rgbs = np.full((len(edges), 3), 128.0)
+    return SyntheticScene(edges, w, x, rgbs, Rot, t, s, p, N, M)

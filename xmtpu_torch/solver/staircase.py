@@ -1,8 +1,9 @@
 """Rank staircase: solve / solve_with_init / solve_rank3.
 
-PyTorch counterpart of ``xmtpu/solver/staircase.py`` for dense cost
-matrices.  The staircase runs the Riemannian trust region at rank o = 3, 4,
-..., certifying each solution with the dual certificate; on an uncertified
+PyTorch counterpart of ``xmtpu/solver/staircase.py``, for dense cost
+matrices and implicit operators (``ops/schurq.py``).  The staircase runs
+the Riemannian trust region at rank o = 3, 4, ..., certifying each
+solution with the dual certificate; on an uncertified
 rank it grows the factor by one zero column and warm-starts an escape
 linesearch along the certificate's minimum-eigenvalue direction divided
 per camera by the scales.
@@ -15,8 +16,12 @@ inside the stage (``kmax32``); when it outruns it, the stage falls back to
 the unfused ladder exactly as the reference does, and the f64 polish starts
 from the f32 phase's final trust radius (``delta0``).
 
-Every rank takes the reference's CPU route on both devices: the stage and
-its Cholesky-probe certificate run back to back (``fused_ok`` at all sizes).
+Every dense rank takes the reference's CPU route on both devices: the stage
+and its Cholesky-probe certificate run back to back (``fused_ok`` at all
+sizes).  An implicit operator runs its stages through the unfused solvers,
+on the two-float operator with ``edge_tf`` / ``edge_f32`` (stopping at the
+first zero-accept collapse cycle, the final primal re-read through the
+exact operator), and certifies through the matvec flow on the exact one.
 """
 
 from __future__ import annotations
@@ -257,18 +262,28 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                  max_time: float = 1000.0, s0_ex: Optional[np.ndarray] = None,
                  rank3_only: bool = False, verbose: bool = True,
                  precision: str = "f64", inner_f32: bool = False,
+                 edge_f32: bool = False, edge_tf: bool = False,
+                 edge_pallas: Optional[bool] = None,
                  checkpoint_path: Optional[str] = None,
                  resume_from: Optional[str] = None,
                  chunk: Optional[int] = None, device=None) -> SolveResult:
-    """In-memory staircase solve on a dense cost matrix.
+    """In-memory staircase solve.
 
     Args:
-      C: (3n, 3n) cost matrix (tensor, numpy array) or ``DenseQ``.
+      C: (3n, 3n) cost matrix (tensor, numpy array), ``DenseQ`` or an
+        implicit operator (``SchurQ``; its tensors are moved to ``device``).
       s0_ex: optional (n,) initial extended scales (solve_rebuttle).
       rank3_only: single rank-3 TR solve, no certificate (solve_rank3).
       precision: "f64" (reference parity) or "mixed" (f32 bulk + f64 polish;
         certificates always run in f64).
       inner_f32: f32 tCG Hessian applies inside the f64 stages.
+      edge_f32 / edge_tf: implicit operators only — run the TR stages on the
+        mixed (``SchurQ.edge_f32``) or fully two-float (``SchurQ.two_float``,
+        takes precedence) operator; the certificate and the final primal
+        stay on the exact one.
+      edge_pallas: with those, route the fast operator's segment sums
+        through ``segsum.sorted_segment_sum`` (None = on the card, where
+        that is the CUDA kernel).
       checkpoint_path / resume_from: staircase checkpoints (``.npz``).
       chunk: outer iterations between host checks (None = auto_chunk(n)).
       device: None = the CUDA card (raises without one); ``"cpu"`` for the
@@ -283,14 +298,21 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
 
     dev = resolve_device(device)
     Cq = as_qop(C, device=dev)
-    if not isinstance(Cq, DenseQ):
-        raise NotImplementedError(
-            f"solve_arrays: {type(Cq).__name__} is not ported yet (dense only)")
-    if Cq.C.dtype != torch.float64:
+    dense = isinstance(Cq, DenseQ)
+    if dense and Cq.C.dtype != torch.float64:
         Cq = DenseQ(Cq.C.to(torch.float64), Cq.psd_hint)
     n = Cq.dim // 3
-    C32q = (cast_qop(Cq, torch.float32)
-            if precision == "mixed" or inner_f32 else None)
+    want32 = precision == "mixed" or inner_f32
+    C32q = cast_qop(Cq, torch.float32) if dense and want32 else None
+    stage_q, stage_q32 = Cq, None
+    if edge_tf and not dense:
+        stage_q = Cq.two_float(pallas=edge_pallas)
+    elif edge_f32 and not dense:
+        stage_q = Cq.edge_f32(pallas=edge_pallas)
+    if stage_q is not Cq and want32:
+        # inner tCG / f32 phase cast from the BASE operator: single product
+        # terms, no hi/lo double work
+        stage_q32 = cast_qop(Cq, torch.float32)
     bound = _min_eig_bound(n)
     gradtol = float(tol)
     chunk_n = chunk if chunk is not None else tr.auto_chunk(n)
@@ -330,19 +352,20 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
     stages = []
     while o <= max_rank:
         t_stage0 = time.perf_counter()
-        fused_ok = precision in ("f64", "mixed")
+        fused_ok = dense and precision in ("f64", "mixed")
         cert_pre, cert_s = None, 0.0
         meta = dict(rank=o, gradtol=gradtol, lam=float(lam))
         if mid_resume is not None:
             # finish the interrupted rank from its chunk-boundary state
-            st = tr_state_from_checkpoint(mid_resume, Q=Cq, device=dev)
+            st = tr_state_from_checkpoint(mid_resume, Q=stage_q, device=dev)
             dim = n * (3 * o - 6) + n - 1
             delta_bar = float(np.sqrt(dim))
             cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32,
                               chunk=chunk_n)
             res = tr.continue_chunks(
-                Cq, st, mid_resume.lam, gradtol, delta_bar, cfg,
-                Q32=C32q if inner_f32 else None, k_done=mid_resume.k_done,
+                stage_q, st, mid_resume.lam, gradtol, delta_bar, cfg,
+                Q32=(C32q if dense else stage_q32) if inner_f32 else None,
+                k_done=mid_resume.k_done,
                 deadline=time.monotonic() + max_time,
                 checkpoint_path=mid_path, ckpt_meta=meta)
             primal_v, reason_v = res.primal, res.done_reason
@@ -360,10 +383,19 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                 chunk=chunk_n, checkpoint_path=mid_path, ckpt_meta=meta)
             primal_v, reason_v, outer_v, inner_v = scal
         else:
-            res = _stage(Cq, R0, s_ex, lam, gradtol, max_time, escape_dir,
-                         verbose, precision, inner_f32, Q32=C32q,
+            res = _stage(stage_q, R0, s_ex, lam, gradtol, max_time,
+                         escape_dir, verbose, precision, inner_f32,
+                         Q32=C32q if dense else stage_q32,
                          checkpoint_path=mid_path, ckpt_meta=meta,
-                         chunk=chunk_n)
+                         stop_on_collapse=stage_q is not Cq, chunk=chunk_n)
+            if stage_q is not Cq and res.done_reason != tr.DONE_LINESEARCH_FAIL:
+                # the fast operator's absolute noise (~eta ||sR||^2) shows
+                # against a near-zero primal (it can even read negative):
+                # re-read the objective through the EXACT operator.  Only
+                # the linesearch-fail sentinel keeps the stage's primal
+                # (guarded by done_reason, not by sign)
+                res = res._replace(primal=float(mf.objective(
+                    Cq.apply, res.R, res.s_ex, float(lam))))
             primal_v, reason_v = res.primal, res.done_reason
             outer_v, inner_v = res.outer_iters, res.total_inner
         outer += int(outer_v)
@@ -396,7 +428,8 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         else:
             t_cert0 = time.perf_counter()
             cert = certify(Cq, _scaled_factor(R_cur, s_cur), lam, res.primal,
-                           verbose=verbose, v0=prev_escape_v, device=dev)
+                           verbose=verbose, v0=prev_escape_v, fast="auto",
+                           device=dev)
             cert_s = time.perf_counter() - t_cert0
         gap, lam_min = float(cert.gap), float(cert.lam_min)
         stages.append(dict(
