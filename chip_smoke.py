@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; no phase is caught):
    its bound and ``index_add_``;
 6. scene B through ``SchurQ`` (the mixed ladder on the two-float operator,
    the matvec certificate): certified at rank 3 within 5e-3 of the
-   reference's primal;
+   reference's primal; before it, the same operator built on the host and
+   moved to the card must apply through the segment-sum kernel (exact, f32
+   cast and two-float), with the same bits on two applies;
 7. scene C through ``xm2._solve_recover`` at xm2's defaults: certified at
    rank 3 within 5e-3 of the reference's primal, recovered rotations no
    worse than 1.5x the reference's errors, segment-sum and tcg_step
@@ -151,28 +153,35 @@ def device_ms(fn, reps: int, setup=None) -> float:
     """Mean ms per call of the card's own work in ``fn``: the durations of
     the kernels and copies it issues, as ``torch.profiler`` records them,
     minus those of ``setup`` alone when given.  Host gaps between launches
-    do not count."""
+    do not count.  ``fn`` and ``setup`` each launch at least one kernel or
+    copy a call; a traced run that recorded fewer than ``reps`` of them (the
+    profiler now and then drops a whole run's events) is taken again, and
+    five such runs in a row raise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def busy_us(with_fn):
-        for _ in range(3):
-            if setup:
-                setup()
-            if with_fn:
-                fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        for _ in range(5):
+            for _ in range(3):
                 if setup:
                     setup()
                 if with_fn:
                     fn()
             torch.cuda.synchronize()
-        return sum(e.time_range.end - e.time_range.start
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    if setup:
+                        setup()
+                    if with_fn:
+                        fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if len(ev) >= reps:
+                return sum(e.time_range.end - e.time_range.start for e in ev)
+        raise RuntimeError(f"device_ms: the profiler recorded {len(ev)} "
+                           f"device events over {reps} calls, five times")
 
     base = busy_us(False) if setup else 0.0
     return max(busy_us(True) - base, 0.0) / reps / 1e3
@@ -342,29 +351,42 @@ def hold_kernels(C, inp, tag, with_cw: bool):
 
     # --- the whole Steihaug loop -----------------------------------------
     res_k = ft.inner_tcg_fused(inp["qmul"], **args)
-    cp, sp, scp = {k: v.clone() for k, v in const.items()}, \
-        tuple(t.clone() for t in state), sc.clone()
-    for _ in range(max_inner):
-        if with_cw:
-            ft.tcg_cw_dense_plain(C32, cp["Rt"], cp["s_ex_t"], sp[4], sp[5],
-                                  scp, cp["CWt"], max_inner)
-        else:
-            Wf = mf.flatten(ft.from_t(sp[4] * cp["s_ex_t"]
-                                         + cp["Rt"] * sp[5], n, o))
-            cp["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * inp["qmul"](Wf))))
-        ft.tcg_step_plain(*cp.values(), *sp, scp, cfgsc, max_inner)
-        if ft._stopped(scp, max_inner):
-            break
-    car = scp.tolist()
-    res_p = (ft.from_t(sp[0], n, o), ft.unpack_s(sp[1], n),
-             ft.from_t(sp[6], n, o), ft.unpack_s(sp[7], n),
-             int(car[ft.S_ER]), int(car[ft.S_I]))
+
+    def plain_loop(gen=None):
+        """The loop through the plain versions; with ``gen``, every product
+        is perturbed by a fresh relative f32 rounding (another summation
+        order's worth of noise)."""
+        cp, sp, scp = {k: v.clone() for k, v in const.items()}, \
+            tuple(t.clone() for t in state), sc.clone()
+        for _ in range(max_inner):
+            if with_cw:
+                ft.tcg_cw_dense_plain(C32, cp["Rt"], cp["s_ex_t"], sp[4],
+                                      sp[5], scp, cp["CWt"], max_inner)
+            else:
+                Wf = mf.flatten(ft.from_t(sp[4] * cp["s_ex_t"]
+                                             + cp["Rt"] * sp[5], n, o))
+                cp["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * inp["qmul"](Wf))))
+            if gen is not None:
+                u = torch.rand(cp["CWt"].shape, generator=gen) * 2.0 - 1.0
+                cp["CWt"].mul_(1.0 + 2.0 ** -24 * u.to(cp["CWt"].device))
+            ft.tcg_step_plain(*cp.values(), *sp, scp, cfgsc, max_inner)
+            if ft._stopped(scp, max_inner):
+                break
+        car = scp.tolist()
+        return (ft.from_t(sp[0], n, o), ft.unpack_s(sp[1], n),
+                ft.from_t(sp[6], n, o), ft.unpack_s(sp[7], n),
+                int(car[ft.S_ER]), int(car[ft.S_I]))
+
+    res_p = plain_loop()
     # How far f32 rounding alone moves this loop: the plain loop against the
     # same loop in f64.  Where that is within the f32 tolerance (a
     # well-separated problem) the kernel must match the plain version to the
     # tolerance, end reason and iteration count included.  Where it is not
     # (near a saddle, every f32 summation order ends elsewhere), the kernel
-    # must be no further from the f64 loop than twice the plain version is.
+    # must be no further from the f64 loop than twice the f32 noise band:
+    # the largest gap of the plain version, as it runs and under three
+    # seeded f32-rounding perturbations of its products (one sample of that
+    # band ranged over 1.4e-2-5.4e-2 at scene A's escape point across runs).
     res_64 = f64_loop(C, inp)
     d64 = rel_gap(res_p, res_64)
     out["loop"], out["loop_f64_gap"] = (res_k[4], res_k[5]), d64
@@ -382,10 +404,14 @@ def hold_kernels(C, inp, tag, with_cw: bool):
                          5e-4 * hscale, 5e-3),
             assert_close(f"{tag} loop hvs", res_k[3], res_p[3], 5e-4, 5e-3)])
     else:
+        band = [d64] + [rel_gap(plain_loop(torch.Generator().manual_seed(k)),
+                                res_64) for k in range(3)]
+        out["loop_f64_gap"] = max(band)
         dk = rel_gap(res_k, res_64)
-        if not dk <= 2.0 * d64 + 2e-3:
+        if not dk <= 2.0 * max(band) + 2e-3:
             raise AssertionError(f"{tag} Steihaug loop: kernel {dk:.3e} from "
-                                 f"the f64 loop, plain {d64:.3e}")
+                                 f"the f64 loop, plain "
+                                 f"{', '.join(f'{b:.3e}' for b in band)}")
         out["loop_err"] = (max(float((a - b).abs().max())
                                for a, b in zip(res_k[:4], res_p[:4])),
                            rel_gap(res_k, res_p))
@@ -547,6 +573,51 @@ def read_counts() -> dict:
                       ss.sorted_segment_sum_blocked)}
 
 
+def hold_carried_operator(scB, dev) -> dict:
+    """Scene B's ``SchurQ`` built on the host, moved to the card by
+    ``as_qop``: each variant's apply must launch the segment-sum kernel, give
+    the same bits twice, and lie no further from the exact host apply than
+    twice the same variant's host apply does (1e-9 for the exact operator;
+    the f32 variants sit at their f32-accumulation floor, ~6e-6 here).
+    Returns ``(card, host)`` relative distances from the exact apply by
+    variant."""
+    import torch
+
+    from xmtpu_torch.ops import segsum as ss
+    from xmtpu_torch.ops.qop import as_qop, cast_qop
+    from xmtpu_torch.ops.schurq import SchurQ
+
+    q_host = SchurQ.build(scB.weights, scB.edges, scB.landmarks, device="cpu")
+    q_card = as_qop(q_host, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    Y = torch.randn((q_host.dim, 3), generator=gen, dtype=torch.float64)
+    exact = q_host.apply(Y)
+
+    def rel(a):
+        return float(torch.linalg.norm(a.cpu().double() - exact)
+                     / torch.linalg.norm(exact))
+
+    out = {}
+    for tag, make in (("SchurQ", lambda q: q),
+                      ("f32 cast", lambda q: cast_qop(q, torch.float32)),
+                      ("two_float", lambda q: q.two_float())):
+        qh, qc = make(q_host), make(q_card)
+        y = Y.to(qh.Q1.dtype)
+        n0 = ss.sorted_segment_sum.launches
+        a, b = qc.apply(y.to(dev)), qc.apply(y.to(dev))
+        torch.cuda.synchronize()
+        if ss.sorted_segment_sum.launches < n0 + 8 or not torch.equal(a, b):
+            raise AssertionError(f"carried {tag}: launches "
+                                 f"{ss.sorted_segment_sum.launches - n0}, "
+                                 f"repeatable {torch.equal(a, b)}")
+        d_card, d_host = rel(a), rel(qh.apply(y))
+        if not d_card <= 2.0 * d_host + 1e-9:
+            raise AssertionError(f"carried {tag}: {d_card:.2e} from the "
+                                 f"exact apply, host {d_host:.2e}")
+        out[tag] = (d_card, d_host)
+    return out
+
+
 def scene(params, device):
     from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
     from xmtpu_torch.pipeline.synthetic import make_scene
@@ -648,7 +719,7 @@ def run(dev, card: str) -> int:
         held[tag] = r
         msg = (f"[smoke] {tag}: step err {r['step_err'][1]:.1e} loop "
                f"(endreason, iters)={r['loop']} err {r['loop_err'][1]:.1e} "
-               f"(f32 vs f64 loop {r['loop_f64_gap']:.1e}); "
+               f"(f32 noise band vs f64 loop {r['loop_f64_gap']:.1e}); "
                f"tcg_step {r['step_ms']:.4f} ms (enqueue "
                f"{r['step_enqueue_ms']:.4f}) plain {r['step_plain_ms']:.4f} "
                f"ms bound {r['step_bound'][0]:.5f}")
@@ -731,8 +802,8 @@ def run(dev, card: str) -> int:
     torch.cuda.synchronize()
     asm_C = time.perf_counter() - t0
     log(f"[smoke] scene C: n={scC.N} m={scC.M} E={len(scC.edges)}; "
-        f"make_scene_window {gen_C:.2f} s, SchurQ build {asm_C:.2f} s, bands "
-        f"l/f {Q_C.band_l}/{Q_C.band_f}, device memory peak of the build "
+        f"make_scene_window {gen_C:.2f} s, SchurQ build {asm_C:.2f} s, "
+        f"device memory peak of the build "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (impl_C and isinstance(Q_C, SchurQ) and Abar_C is None):
         raise AssertionError(f"scene C: the operator choice took "
@@ -746,6 +817,10 @@ def run(dev, card: str) -> int:
 
     # ---- 6. scene B through the implicit operator ---------------------------
     scB = make_scene(**SCENE_B)
+    carried = hold_carried_operator(scB, dev)
+    log(f"[smoke] scene B SchurQ built on the host, moved to the card: "
+        f"kernel launched, bits repeat; (card, host) relative distance from "
+        f"the exact host apply {carried}")
     t0 = time.perf_counter()
     Q_B = SchurQ.build(scB.weights, scB.edges, scB.landmarks, device=dev)
     torch.cuda.synchronize()

@@ -24,7 +24,9 @@ import torch
 from xmtpu_torch.ops import fused_tcg as ft
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.ops import segsum as ss
-from xmtpu_torch.ops.qop import DenseQ
+from xmtpu_torch.ops.qop import DenseQ, as_qop, cast_qop
+from xmtpu_torch.ops.schurq import SchurQ
+from xmtpu_torch.pipeline.synthetic import make_scene
 from xmtpu_torch.solver import trust_region as tr
 
 
@@ -279,3 +281,57 @@ def test_segsum_wrappers_reject_bad_tensors_on_card(cuda_device):
     with pytest.raises(TypeError):
         ss.sorted_segment_sum(v, i, 10, offsets=ss.segment_offsets(
             i, 10).long())
+
+
+# ------------------------------------------- the implicit operator's routing --
+
+_OPS = {"SchurQ": lambda q: q,
+        "f32 cast": lambda q: cast_qop(q, torch.float32),
+        "edge_f32": lambda q: q.edge_f32(),
+        "two_float": lambda q: q.two_float()}
+
+
+def _host_schurq():
+    sc = make_scene(n_cameras=10, n_points=50, obs_per_camera=20, noise=1e-3,
+                    seed=4)
+    return SchurQ.build(sc.weights, sc.edges, sc.landmarks, device="cpu")
+
+
+@pytest.mark.parametrize("kind", list(_OPS))
+def test_schurq_host_sums_ignore_bands(kind):
+    """On the host every apply takes the plain twin, with or without the
+    reference's bands recorded: same bits, no launch counted."""
+    q = _host_schurq()
+    a, b = _OPS[kind](q), _OPS[kind](q.with_pallas())
+    Y = torch.tensor(np.random.default_rng(1).normal(size=(q.dim, 3)),
+                     dtype=a.Q1.dtype)
+    n0 = ss.sorted_segment_sum.launches
+    assert torch.equal(a.apply(Y), b.apply(Y))
+    assert ss.sorted_segment_sum.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_OPS))
+def test_schurq_moved_to_card_takes_kernel(kind, cuda_device):
+    """An operator built on the host and moved to the card (no bands) runs
+    every segment sum through the kernel: launches counted, the same bits on
+    two applies, and no further from the exact host apply than twice the
+    same variant's host apply (1e-9 for the exact operator)."""
+    exact = _host_schurq()
+    q_host = _OPS[kind](exact)
+    q = _OPS[kind](as_qop(exact, device=cuda_device))
+    Y = torch.tensor(np.random.default_rng(1).normal(size=(q.dim, 3)),
+                     dtype=q.Q1.dtype)
+    n0 = ss.sorted_segment_sum.launches
+    a = q.apply(Y.to(cuda_device))
+    b = q.apply(Y.to(cuda_device))
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_sum.launches >= n0 + 8
+    assert torch.equal(a, b)
+    ref = exact.apply(Y.double())
+
+    def rel(x):
+        return float(torch.linalg.norm(x.cpu().double() - ref)
+                     / torch.linalg.norm(ref))
+
+    assert rel(a) <= 2.0 * rel(q_host.apply(Y)) + 1e-9

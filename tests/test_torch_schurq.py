@@ -5,8 +5,9 @@ Tolerances: the exact f64 operator and its pieces agree to ``rtol 1e-9``
 (``VT_inv`` to ``1e-10``, as ``tests/test_schurq.py`` holds its own builds);
 a reference operator carried across by ``convert.schurq_from_numpy`` applies
 to ``1e-12``; the f32-pair operators with bands set (the reference in
-Pallas interpret mode, the port through ``segsum``'s plain twin) agree
-within ``1e-6`` of the output's norm, their documented noise floor.
+Pallas interpret mode, the port through ``segsum``'s plain twin, which it
+takes on the host whatever the bands) agree within ``1e-6`` of the output's
+norm, their documented noise floor.
 """
 
 import jax.numpy as jnp
@@ -53,7 +54,7 @@ def test_vt_inv_matches(problem, vt_build):
     np.testing.assert_allclose(q.VT_inv.numpy(), np.asarray(Qj.VT_inv),
                                rtol=1e-10, atol=1e-12)
     assert q.psd_ok and q.vt_resid_ratio < 2e3
-    assert (q.band_l, q.band_f) == (0, 0)          # host: the CPU route
+    assert (q.band_l, q.band_f) == (0, 0)          # recorded only on request
 
 
 def test_apply_and_recover_y_match(problem):
@@ -87,7 +88,7 @@ def test_two_float_operators_with_bands(problem, kind):
     assert got.dtype == np.float64
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-6
     assert _rel(got, C @ Y) < 1e-5
-    # without bands, the port's index_add_ route lands on the same floor
+    # without bands recorded, the port's applies run the same sums
     plain = getattr(Qt, kind)(pallas=False)
     assert (plain.band_l, plain.band_f) == (0, 0)
     assert _rel(plain.apply(torch.tensor(Y)).numpy(), ref) < 1e-6
@@ -111,7 +112,7 @@ def test_with_pallas_f32_cast(problem):
     got = q32.apply(torch.tensor(Y)).numpy()
     ref = np.asarray(jqop.cast_qop(jp, jnp.float32).apply(jnp.asarray(Y)))
     np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
-    # f64 applies are unchanged by the bands on the host
+    # f64 applies are unchanged by the bands
     Y64 = _rng_y(1, C.shape[0], 3)
     np.testing.assert_array_equal(qp.apply(torch.tensor(Y64)).numpy(),
                                   Qt.apply(torch.tensor(Y64)).numpy())

@@ -13,14 +13,15 @@ one (n-1)^2 GEMM.
 
 Edge arrays are kept in two sorted orderings (by landmark, by frame) with
 their CSR boundaries ``bounds_l`` / ``bounds_f``.  Every segment sum of an
-apply is sorted; with a band set (``with_pallas``, ``edge_f32(pallas=...)``,
-``two_float(pallas=...)``) it goes through ``ops.segsum.sorted_segment_sum``
-— on the card the hand-written CUDA kernel, reading the stored boundaries.
-On the card that route is taken for every dtype and is set up by ``build``
-itself: the kernel's fixed summation order gives the exact f64 operator the
-same bits on every run, which ``index_add_``'s atomics do not.  On the host
-the reference's CPU route is kept: bands only when asked for, and then only
-for f32 sums (the reference's f64 sums never took its TPU kernel).
+apply and of the build is sorted and goes through
+``ops.segsum.sorted_segment_sum``, routed by the device of its tensors: on
+the card the hand-written CUDA kernel (every dtype, reading the stored
+boundaries), on the host its plain twin.  The kernel's fixed summation order
+gives the exact f64 operator the same bits on every run, which
+``index_add_``'s atomics on the card would not.  The segment-sum bands
+(``with_pallas``, ``edge_f32(pallas=True)``, ``two_float(pallas=True)``) are
+the reference kernel's bounds (``max_band``), carried for parity with the
+reference; neither route reads them.
 
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
@@ -37,8 +38,7 @@ import torch
 
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
-from xmtpu_torch.ops.segsum import (max_band, sorted_segment_sum,
-                                    sorted_segment_sum_plain as _seg_sum)
+from xmtpu_torch.ops.segsum import max_band, sorted_segment_sum
 
 # above this (N * M * 8 bytes) the build switches from one (N, M) V3F slab
 # to landmark-chunked Gram accumulation (the reference's ~4 GB budget)
@@ -49,18 +49,26 @@ _SLAB_BUDGET_BYTES = 4 << 30
 _PAIR_BUDGET = 30_000_000
 
 
-def _kernel_seg(vals, ids, bounds, num, band):
-    """Sorted segment sum of ``vals (E, ...)`` through
-    ``segsum.sorted_segment_sum`` (the CUDA kernel on the card)."""
+def _seg(vals, ids, bounds, num):
+    """Sorted segment sum of ``vals (E, ...)`` by ``ids`` with CSR
+    boundaries ``bounds`` through ``segsum.sorted_segment_sum`` (the CUDA
+    kernel on the card, the plain twin on the host)."""
     out = sorted_segment_sum(vals.reshape(vals.shape[0], -1).contiguous(),
-                             ids, num, band, offsets=bounds)
+                             ids, num, offsets=bounds)
     return out.reshape((num,) + tuple(vals.shape[1:]))
 
 
-def _takes_kernel(vals: torch.Tensor, band: int) -> bool:
-    """The reference's routing (a band set and an f32 sum), with every dtype
-    taking the kernel on the card."""
-    return bool(band) and (vals.dtype == torch.float32 or vals.is_cuda)
+def _sorted_scatter_sum(vals, ids, size: int):
+    """Flat ``(size,)`` sums of ``vals (E,)`` by non-decreasing ``ids``:
+    each run of equal ids is one segment of :func:`_seg`, its sum written
+    once."""
+    uniq, counts = torch.unique_consecutive(ids, return_counts=True)
+    bounds = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    run = torch.repeat_interleave(
+        torch.arange(len(uniq), device=ids.device), counts)
+    out = vals.new_zeros(size)
+    out[uniq] = _seg(vals, run, bounds.to(torch.int32), len(uniq))
+    return out
 
 
 def _bands(l_l, f_f):
@@ -78,7 +86,8 @@ class SchurQ(QOperator):
       VT_inv (>= n-1, n-1), rows past n-1 zero-padded.
     ``psd_ok``: the structural-PSD claim (cleared by sub-f64 casts and by an
     ``"ns"`` build whose residual failed its guard).  ``band_l``/``band_f``:
-    segment-sum bands per ordering (0 = ``index_add_``; see module doc).
+    the reference kernel's segment-sum bands per ordering, 0 until
+    :meth:`with_pallas` records them (see module doc).
     """
 
     Q1: torch.Tensor
@@ -101,18 +110,12 @@ class SchurQ(QOperator):
     band_f: int = 0
 
     def with_pallas(self, interpret: "bool | None" = None) -> "SchurQ":
-        """Set the segment-sum bands, routing the applies' sorted segment
-        sums through ``segsum.sorted_segment_sum``: the CUDA kernel on the
-        card (every dtype), the f32 sums' plain twin on the host.  The name
-        and ``interpret`` (ignored: CPU tensors take the plain twin) are the
-        reference's, so callers port unchanged."""
+        """The operator with the reference kernel's segment-sum bands
+        recorded.  The applies' segment sums already take the CUDA kernel on
+        the card and its plain twin on the host; the name and ``interpret``
+        (ignored) are the reference's, so callers port unchanged."""
         band_l, band_f = _bands(self.l_l, self.f_f)
         return dataclasses.replace(self, band_l=band_l, band_f=band_f)
-
-    def _seg(self, vals, ids, bounds, num, band):
-        if _takes_kernel(vals, band):
-            return _kernel_seg(vals, ids, bounds, num, band)
-        return _seg_sum(vals, ids, num)
 
     @staticmethod
     def build(weights, edges, landmarks, landmark_chunk: "int | None" = None,
@@ -125,8 +128,7 @@ class SchurQ(QOperator):
         expansion for sparse graphs, landmark chunks of this width else);
         0 forces the slab.  ``vt_build``: "chol" (f64 Cholesky), "ns" (f32
         Cholesky seed + f64 Newton-Schulz, rebuilt through "chol" when it
-        stalls) or "auto" ("chol" here).  On the card the result has its
-        bands set (module doc).
+        stalls) or "auto" ("chol" here).
         """
         dev = resolve_device(device)
         edges = np.asarray(edges)
@@ -170,8 +172,6 @@ class SchurQ(QOperator):
             # rebuild through the exact f64 factorization
             q, resid_ratio = _build_schurq(*args, N, M, vt_gram=vt_gram,
                                            vt_build="chol")
-        if dev.type == "cuda":
-            q = q.with_pallas()
         # build-time observability (a host attribute, not a field)
         q.vt_resid_ratio = float(resid_ratio)
         return q
@@ -199,8 +199,7 @@ class SchurQ(QOperator):
         for a in range(3):
             ta = self.wx_l[:, a:a + 1] * g[:, a * o:(a + 1) * o]
             t = ta if t is None else t + ta
-        b_B = -self._seg(t, self.l_l, self.bounds_l, self.n_landmarks,
-                         self.band_l)
+        b_B = -_seg(t, self.l_l, self.bounds_l, self.n_landmarks)
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
@@ -212,20 +211,20 @@ class SchurQ(QOperator):
         zg = z_B[self.l_f]
         contrib = torch.cat([self.wx_f[:, a:a + 1] * zg for a in range(3)],
                             dim=1)
-        red = self._seg(contrib, self.f_f, self.bounds_f, n, self.band_f)
+        red = _seg(contrib, self.f_f, self.bounds_f, n)
         return out - red.reshape(n, 3, o)
 
     def _v3f(self, z_B):
         """``V3F z_B``: (m, o) -> (n-1, o)."""
-        out = self._seg(self.cf_f[:, None] * z_B[self.l_f], self.f_f,
-                        self.bounds_f, self.n_cameras, self.band_f)
+        out = _seg(self.cf_f[:, None] * z_B[self.l_f], self.f_f,
+                   self.bounds_f, self.n_cameras)
         return out[1:]
 
     def _v3fT(self, x_A):
         """``V3F^T x_A``: (n-1, o) -> (m, o)."""
         x_pad = torch.cat([torch.zeros_like(x_A[:1]), x_A], dim=0)
-        return self._seg(self.cf_l[:, None] * x_pad[self.f_l], self.l_l,
-                         self.bounds_l, self.n_landmarks, self.band_l)
+        return _seg(self.cf_l[:, None] * x_pad[self.f_l], self.l_l,
+                    self.bounds_l, self.n_landmarks)
 
     def solve_M(self, b_A, b_B):
         """Exact solve of ``Mbar [x_A; x_B] = [b_A; b_B]`` (padded
@@ -285,14 +284,11 @@ class SchurQ(QOperator):
 
     def edge_f32(self, pallas: "bool | None" = None) -> "SchurQEdgeF32":
         """The mixed-precision operator (two-float f32 edge reductions
-        inside an f64 apply).  ``pallas``: route its f32 segment sums through
-        ``segsum.sorted_segment_sum`` (bands computed here).  None = on the
-        card (the CUDA kernel) and not on the host, the reference's policy
-        with the card in the TPU's place; True on the host runs the plain
-        twin (the reference's interpret mode)."""
+        inside an f64 apply).  ``pallas=True`` records the reference
+        kernel's bands on the result, as :meth:`with_pallas` does; the
+        segment sums take the CUDA kernel on the card and the plain twin on
+        the host whatever it is."""
         q = _make_edge_f32(self)
-        if pallas is None:
-            pallas = self.f_l.is_cuda
         if pallas:
             band_l, band_f = _bands(self.l_l, self.f_f)
             q = dataclasses.replace(q, band_l=band_l, band_f=band_f)
@@ -349,10 +345,10 @@ def _wx_outer3(wh, wl, zh, zl):
 @dataclass
 class SchurQEdgeF32(QOperator):
     """SchurQ with the edge reductions in two-float f32 (hi/lo pairs, the
-    two f32 segment sums combined in f64); see the reference.  With bands
-    set, both sums of a reduction run as ONE ``sorted_segment_sum`` over the
-    hi|lo columns.  ``bounds_l``/``bounds_f`` are the CSR boundaries the
-    CUDA kernel reads."""
+    two f32 segment sums combined in f64); see the reference.  Both sums of
+    a reduction run as ONE ``sorted_segment_sum`` over the hi|lo columns.
+    ``bounds_l``/``bounds_f`` are the CSR boundaries the CUDA kernel reads;
+    the bands are recorded only (module doc)."""
 
     Q1: torch.Tensor
     V1: torch.Tensor
@@ -391,18 +387,16 @@ class SchurQEdgeF32(QOperator):
     def diag_blocks(self):
         return self.Q1
 
-    def _seg2(self, hi, lo, ids, bounds, num, band=0):
-        """Two f32 segment sums combined in f64; with a band, one
+    def _seg2(self, hi, lo, ids, bounds, num):
+        """Two f32 segment sums combined in f64, as one
         ``sorted_segment_sum`` over the concatenated hi|lo columns."""
         dt = self.Q1.dtype
-        if band:
-            E = hi.shape[0]
-            both = torch.cat([hi.reshape(E, -1), lo.reshape(E, -1)], dim=1)
-            s2 = _kernel_seg(both, ids, bounds, num, band)
-            d = both.shape[1] // 2
-            out = s2[:, :d].to(dt) + s2[:, d:].to(dt)
-            return out.reshape((num,) + tuple(hi.shape[1:]))
-        return _seg_sum(hi, ids, num).to(dt) + _seg_sum(lo, ids, num).to(dt)
+        E = hi.shape[0]
+        both = torch.cat([hi.reshape(E, -1), lo.reshape(E, -1)], dim=1)
+        s2 = _seg(both, ids, bounds, num)
+        d = both.shape[1] // 2
+        out = s2[:, :d].to(dt) + s2[:, d:].to(dt)
+        return out.reshape((num,) + tuple(hi.shape[1:]))
 
     def _vtpT(self, Yb):
         n, _, o = Yb.shape
@@ -410,8 +404,7 @@ class SchurQEdgeF32(QOperator):
         Yh, Yl = split_f32(Yb.reshape(n, 3 * o))
         gh, gl = Yh[self.f_l], Yl[self.f_l]
         th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks,
-                          self.band_l)
+        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
@@ -422,7 +415,7 @@ class SchurQEdgeF32(QOperator):
         zh, zl = split_f32(z_B)
         gh, gl = zh[self.l_f], zl[self.l_f]
         th, tl = _wx_outer3(self.wxh_f, self.wxl_f, gh, gl)
-        red = self._seg2(th, tl, self.f_f, self.bounds_f, n, self.band_f)
+        red = self._seg2(th, tl, self.f_f, self.bounds_f, n)
         return out - red.reshape(n, 3, o)
 
     def _v3f(self, z_B):
@@ -430,8 +423,7 @@ class SchurQEdgeF32(QOperator):
         gh, gl = zh[self.l_f], zl[self.l_f]
         th = self.cfh_f[:, None] * gh
         tl = self.cfh_f[:, None] * gl + self.cfl_f[:, None] * gh
-        return self._seg2(th, tl, self.f_f, self.bounds_f, self.n_cameras,
-                          self.band_f)[1:]
+        return self._seg2(th, tl, self.f_f, self.bounds_f, self.n_cameras)[1:]
 
     def _v3fT(self, x_A):
         x_pad = torch.cat([torch.zeros_like(x_A[:1]), x_A], dim=0)
@@ -439,8 +431,7 @@ class SchurQEdgeF32(QOperator):
         gh, gl = xh[self.f_l], xl[self.f_l]
         th = self.cfh_l[:, None] * gh
         tl = self.cfh_l[:, None] * gl + self.cfl_l[:, None] * gh
-        return self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks,
-                          self.band_l)
+        return self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
 
     solve_M = SchurQ.solve_M
     apply = SchurQ.apply
@@ -500,8 +491,7 @@ class SchurQTF(QOperator):
         b_A = (bh.to(dt) + bl.to(dt))[1:]
         gh, gl = Yh[self.f_l], Yl[self.f_l]
         th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks,
-                          self.band_l)
+        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
@@ -515,7 +505,7 @@ class SchurQTF(QOperator):
         zh, zl = split_f32(z_B)
         gh, gl = zh[self.l_f], zl[self.l_f]
         th, tl = _wx_outer3(self.wxh_f, self.wxl_f, gh, gl)
-        red = self._seg2(th, tl, self.f_f, self.bounds_f, n, self.band_f)
+        red = self._seg2(th, tl, self.f_f, self.bounds_f, n)
         return (out - red.reshape(n, 3 * o)).reshape(n, 3, o)
 
     def solve_M(self, b_A, b_B):
@@ -542,8 +532,7 @@ class SchurQTF(QOperator):
         b_A = (bh.to(dt) + bl.to(dt))[1:]
         gh, gl = Yh[self.f_l], Yl[self.f_l]
         th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks,
-                          self.band_l)
+        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
         z_A, z_B = self.solve_M(b_A, b_B)
         out = out - self._vtp(z_A, z_B)
         return out.reshape(3 * n, o)
@@ -609,7 +598,7 @@ def _vt_gram_chunked(w, f, l, ord_l, bounds_l, N: int, M: int, mc: int,
                      device) -> torch.Tensor:
     """Accumulate ``V3F_full @ V3F_full.T`` (camera-0 row included) over
     landmark chunks of width ``mc``: per chunk an (mc, N) slab built by a
-    flat ``index_add_`` and one GEMM.  Memory O(N * mc)."""
+    flat sorted sum and one GEMM.  Memory O(N * mc)."""
     q3h = np.bincount(l, weights=w, minlength=M)
     fs, ls, ws = f[ord_l], l[ord_l], w[ord_l]
     cf = (ws / np.sqrt(q3h[ls])) * (fs > 0)
@@ -622,7 +611,7 @@ def _vt_gram_chunked(w, f, l, ord_l, bounds_l, N: int, M: int, mc: int,
         li = torch.as_tensor((ls[e0:e1] - k * mc) * N + fs[e0:e1],
                              device=device)
         co = torch.as_tensor(cf[e0:e1], device=device)
-        slab = _seg_sum(co, li, mc * N).reshape(mc, N)
+        slab = _sorted_scatter_sum(co, li, mc * N).reshape(mc, N)
         gram = gram + slab.T @ slab
     return gram
 
@@ -673,18 +662,12 @@ def _vt_inv_mixed(VT: torch.Tensor):
 def _build_schurq(w, x, f_l, l_l, ord_l, f_f, l_f, ord_f, bounds_l, bounds_f,
                   N: int, M: int, vt_gram=None, vt_build: str = "chol"):
     """The operator's arrays from the sorted edge orderings.  Returns
-    ``(SchurQ, resid_ratio)`` (0.0 for "chol").  Segment sums over the
-    sorted orderings take the kernel route on the card (fixed order)."""
-    def seg(vals, ids, bounds, num):
-        if vals.is_cuda:
-            return _kernel_seg(vals, ids, bounds, num, 1)
-        return _seg_sum(vals, ids, num)
-
+    ``(SchurQ, resid_ratio)`` (0.0 for "chol")."""
     wx = w[:, None] * x
-    q2 = seg(w[ord_f], f_f, bounds_f, N)
-    q3 = seg(w[ord_l], l_l, bounds_l, M)
-    Q1 = seg((wx[:, :, None] * x[:, None, :])[ord_f], f_f, bounds_f, N)
-    V1 = seg(wx[ord_f], f_f, bounds_f, N)
+    q2 = _seg(w[ord_f], f_f, bounds_f, N)
+    q3 = _seg(w[ord_l], l_l, bounds_l, M)
+    Q1 = _seg((wx[:, :, None] * x[:, None, :])[ord_f], f_f, bounds_f, N)
+    V1 = _seg(wx[ord_f], f_f, bounds_f, N)
     inv_q3 = 1.0 / q3
     inv_sqrt_q3 = 1.0 / torch.sqrt(q3)
 
@@ -693,9 +676,9 @@ def _build_schurq(w, x, f_l, l_l, ord_l, f_f, l_f, ord_f, bounds_l, bounds_f,
     if vt_gram is not None:
         gram = vt_gram[1:, 1:]
     else:
-        # the (N, M) V3F slab by a flat sorted scatter (f-sorted edges make
+        # the (N, M) V3F slab by a flat sorted sum (f-sorted edges make
         # f*M + l monotone)
-        flat = _seg_sum(cf_f, f_f * M + l_f, N * M)
+        flat = _sorted_scatter_sum(cf_f, f_f * M + l_f, N * M)
         V3F = flat.reshape(N, M)[1:]
         gram = V3F @ V3F.T
         del flat, V3F

@@ -10,8 +10,8 @@ staircase solve and recovery — in memory through
 ``implicit="auto"`` picks the factored ``SchurQ`` operator when the dense
 assembly would not fit (:func:`choose_implicit`); its stages run the
 production policy (``inner_f32`` + ``edge_tf`` at loose tolerances), its
-segment sums on the card through the CUDA kernel (``SchurQ.build`` sets the
-bands there), its certificate and recovery on the exact operator.
+segment sums on the card through the CUDA kernel, its certificate and
+recovery on the exact operator.
 """
 
 from __future__ import annotations
@@ -85,8 +85,6 @@ def _assemble_operator(weights, edges, landmarks, verbose, implicit,
     if implicit:
         from xmtpu_torch.ops.schurq import SchurQ
 
-        # on the card build() sets the segment-sum bands: every apply's
-        # sorted segment sums run through the CUDA kernel
         return SchurQ.build(weights, edges, landmarks, device=dev), None, True
     from xmtpu_torch.ops.qop import DenseQ
 

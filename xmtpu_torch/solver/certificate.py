@@ -339,22 +339,13 @@ def _implicit_z_build(Q_op, sR, lam):
     return mk_zmul, dual, Dall, corr
 
 
-def _eigh_3x3(A):
-    """``torch.linalg.eigh`` of a batch of 3x3 blocks, run on the host and
-    returned on ``A``'s device.  On an H100 the batched CUDA solver's
-    workspace for the n blocks of an n=6144 operator was most of the
-    implicit solve's device memory peak (``chip_smoke.py``, scene C)."""
-    w, V = torch.linalg.eigh(A.cpu())
-    return w.to(A.device), V.to(A.device)
-
-
 def _delta_min(Dall, corr):
     """``min_i lam_min(Delta_i)`` of ``Z = C + blkdiag(Delta)``: a rigorous
     lower bound on ``lam_min(Z)`` when ``C`` is structurally PSD."""
     Delta = -Dall.clone()
     Delta[:, 0, 0] += corr
     Delta = 0.5 * (Delta + Delta.transpose(-1, -2))
-    return torch.min(_eigh_3x3(Delta)[0])
+    return torch.min(torch.linalg.eigh(Delta)[0])
 
 
 def _implicit_z_parts(Q_op, sR, lam, with_diag: bool = False,
@@ -439,7 +430,7 @@ def _probe_operators(Q_op, A_op, sR, lam, shift, W=None, AW=None,
     zmul_mat, _, Zdiag = _implicit_z_parts(Q_op, sR, lam, with_diag=True,
                                            apply_op=A_op)
     Ms = Zdiag + shift * torch.eye(3, dtype=sR.dtype, device=sR.device)
-    wM, VM = _eigh_3x3(Ms)
+    wM, VM = torch.linalg.eigh(Ms)
     floor = 1e-6 * torch.clamp(torch.max(torch.abs(wM)), min=1e-30)
     wM = torch.maximum(wM, floor)
     Minv = torch.einsum("nak,nk,nbk->nab", VM, 1.0 / wM, VM)

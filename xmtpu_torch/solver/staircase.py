@@ -281,9 +281,9 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         mixed (``SchurQ.edge_f32``) or fully two-float (``SchurQ.two_float``,
         takes precedence) operator; the certificate and the final primal
         stay on the exact one.
-      edge_pallas: with those, route the fast operator's segment sums
-        through ``segsum.sorted_segment_sum`` (None = on the card, where
-        that is the CUDA kernel).
+      edge_pallas: with those, record the reference kernel's segment-sum
+        bands on the fast operator (``SchurQ.edge_f32``); its segment sums
+        take the CUDA kernel on the card whatever it is.
       checkpoint_path / resume_from: staircase checkpoints (``.npz``).
       chunk: outer iterations between host checks (None = auto_chunk(n)).
       device: None = the CUDA card (raises without one); ``"cpu"`` for the
