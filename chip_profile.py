@@ -12,13 +12,23 @@ with the untraced wall time, the traced wall time, the time the card was
 busy (the union of its kernels' intervals), the idle share, the launches,
 and the device time of the heaviest kernels by name.  Kernels are built
 first, outside every timing.
+
+    python3 chip_profile.py --kernels [ROOT ...]
+
+times the kernels alone instead (:func:`kernel_times`), once for the
+``xmtpu_torch`` of each ROOT in the order given (default: this checkout),
+each in a process of its own, one JSON line each: an unpacked parent commit
+and this checkout, given as ``parent . . parent``, compare on one card.
 Imports nothing of JAX or of the JAX package.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def busy_us(intervals) -> float:
@@ -120,13 +130,120 @@ def profile_c(dev):
         dict(build_s=t_build))
 
 
+def kernel_times(dev) -> dict:
+    """``tcg_step`` at scenes A, B and C (n = 120, 1934, 6144; o = 3, the
+    first outer iteration of the f32 phase from identity frames, as
+    ``chip_smoke.py`` holds them) and the segment sums on scene C's
+    orderings, timed as ``chip_smoke.py`` times them, for the
+    ``xmtpu_torch`` first on ``sys.path``.  With ``fused_tcg.step_geometry``
+    present, ``tcg_step`` is also timed at other block counts."""
+    import importlib.util
+
+    import torch
+
+    import xmtpu_torch
+    from xmtpu_torch import _build
+    from xmtpu_torch.ops import fused_tcg as ft
+    from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.ops.qop import DenseQ, cast_qop
+    from xmtpu_torch.pipeline import xm2
+    from xmtpu_torch.pipeline.synthetic import make_scene_window
+    from xmtpu_torch.solver import trust_region as tr
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    _build.build_all()
+    f32 = torch.float32
+    out = dict(root=os.path.dirname(os.path.dirname(
+        os.path.abspath(xmtpu_torch.__file__))), step={})
+    ops = []
+    for name, params in (("A", cs.SCENE_A), ("B", cs.SCENE_B)):
+        C, _, _ = cs.scene(params, dev)
+        ops.append((name, DenseQ(C.to(f32)), C.shape[0] // 3))
+        del C
+    scC = make_scene_window(**cs.SCENE_C)
+    Q_C, _, _ = xm2._assemble_operator(scC.weights, scC.edges, scC.landmarks,
+                                       False, "auto", device=dev)
+    ops.append(("C", cast_qop(Q_C, f32), scC.N))
+    geometry = getattr(ft, "step_geometry", None)
+    for name, q, n in ops:
+        R = mf.identity_frames(n, 3, device=dev)
+        ones = torch.ones((n,), dtype=torch.float64, device=dev)
+        inp = cs.f32_phase_inputs(q, R, ones)
+        _, const, state, sc, cfgsc = cs.step_inputs(inp)
+        max_inner = int(inp["cfg"].max_inner)
+        rec = dict(n=n, ms=cs.time_step(const, state, sc, cfgsc, max_inner),
+                   bound_ms=cs.bound_ms(*cs.step_bytes_ops(n, 3))[0],
+                   geometry=list(geometry(n, 3)) if geometry else
+                   [1, min(1024, 32 * -(-n // 32))])
+        if geometry is not None and n > ft.CAMS_PER_BLOCK:
+            rec["sweep"] = {}
+            for blocks in (2, 4, 8, 12, 16):
+                threads = min(ft.max_threads(3), 32 * -(-n // (32 * blocks)))
+                ft.step_geometry = lambda n_, o_, g=(blocks, threads): g
+                rec["sweep"][f"{blocks}x{threads}"] = cs.time_step(
+                    const, state, sc, cfgsc, max_inner)
+            ft.step_geometry = geometry
+            if hasattr(ft, "SYNC"):
+                # the cooperative-grid alternative, at a few block sizes
+                ft.SYNC, cams = "grid", ft.CAMS_PER_BLOCK
+                for ft.CAMS_PER_BLOCK in (64, 128, 256):
+                    b, t = geometry(n, 3)
+                    rec["sweep"][f"grid {b}x{t}"] = cs.time_step(
+                        const, state, sc, cfgsc, max_inner)
+                ft.SYNC, ft.CAMS_PER_BLOCK = "cluster", cams
+        out["step"][name] = rec
+        if name == "C":
+            # inner iterations of the f32 phase's first outer iterations
+            # (chip_smoke.LONG_C is one that runs at least 10)
+            cfg32, gradtol32 = tr.TRConfig().f32_ladder(1e-6)
+            delta_bar = np.float32(np.sqrt(float(n * 3 + n - 1)))
+            st = tr._init_state(q, R.to(f32), ones.to(f32), np.float32(0.0),
+                                delta_bar, cfg32)
+            iters = []
+            for k in range(120):
+                t0 = st.total_inner
+                st = tr._run_chunk(q, st, 0.0, gradtol32, delta_bar, cfg32,
+                                   k + 1)
+                if st.k <= k:
+                    break
+                iters.append(int(st.total_inner - t0))
+            out["C_f32_phase_inner_iters"] = iters
+        del q
+    out["segsum"] = [dict(kernel=c["kernel"], tag=c["tag"], ms=c["ms"],
+                          library_ms=c["library_ms"], bound_ms=c["bound"][0])
+                     for c in cs.hold_segsum(Q_C, dev)]
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:2] == ["--kernels"]:
+        sys.path.insert(0, here)
+        import chip_smoke as cs
+
+        print(cs.card_line(), flush=True)
+        # each tree's kernels in a process of its own, in the order given
+        for root in sys.argv[2:] or [here]:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--kernels-in", os.path.abspath(root)],
+                           check=True)
+        return 0
+    if sys.argv[1:2] == ["--kernels-in"]:
+        sys.path.insert(0, sys.argv[2])
+        dev = torch.device("cuda")
+        print(json.dumps(kernel_times(dev)), flush=True)
+        return 0
+    sys.path.insert(0, here)
     import chip_smoke as cs
     from xmtpu_torch import _build
 

@@ -99,6 +99,11 @@ RTOL_PRIMAL = 1e-4
 # f32-phase outer iterations after which the Steihaug loop runs long (on
 # the host: 54 iterations at scene A, 12 at scene B)
 LONG_A, LONG_B = 85, 56
+# the same at scene C on the f32 cast of SchurQ: 20 iterations after 104
+# outer ones, 11-25 at every index from 95 to 119 (chip_profile.py
+# --kernels, H100)
+LONG_C = 104
+LONG_C_ITERS = 10  # the fewest inner iterations the case must run
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
 # f64 FLOP/s outside the tensor cores
@@ -187,20 +192,37 @@ def device_ms(fn, reps: int, setup=None) -> float:
     return max(busy_us(True) - base, 0.0) / reps / 1e3
 
 
-def f32_phase_inputs(C, R, s_ex, outer: int = 0, lam=0.0):
-    """Real inputs of ``fused_tcg.inner_tcg_fused``: the mixed ladder's f32
-    phase started at (R, s_ex) is run for ``outer`` outer iterations, and
-    its next outer iteration's tCG arguments are computed as
-    ``_outer_step`` does (``outer=0``: the phase's first outer
-    iteration)."""
+def kernel_mean_ms(fn, name: str):
+    """Runs ``fn`` once under ``torch.profiler``: the mean device ms of the
+    kernels whose name holds ``name``, and their count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    if not ev:
+        raise RuntimeError(f"kernel_mean_ms: no device event named {name}")
+    return sum(ev) / len(ev) / 1e3, len(ev)
+
+
+def f32_phase_inputs(q, R, s_ex, outer: int = 0, lam=0.0):
+    """Real inputs of ``fused_tcg.inner_tcg_fused`` on the f32 operator
+    ``q``: the mixed ladder's f32 phase started at (R, s_ex) is run for
+    ``outer`` outer iterations, and its next outer iteration's tCG arguments
+    are computed as ``_outer_step`` does (``outer=0``: the phase's first
+    outer iteration)."""
     import torch
 
     from xmtpu_torch.ops import manifold as mf
-    from xmtpu_torch.ops.qop import DenseQ
     from xmtpu_torch.solver import trust_region as tr
 
     f32 = torch.float32
-    q = DenseQ(C.to(f32))
     n, _, o = R.shape
     cfg32, gradtol32 = tr.TRConfig().f32_ladder(1e-6)
     delta_bar = np.float32(np.sqrt(float(n * (3 * o - 6) + n - 1)))
@@ -262,16 +284,14 @@ def worst(errs):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def f64_loop(C, inp):
-    """The Steihaug loop of ``inp`` in float64 through the generic path:
-    ``(vR, vs, hvR, hvs, endreason, iters)``."""
+def f64_loop(q, inp):
+    """The Steihaug loop of ``inp`` in float64 through the generic path, on
+    the f64 operator ``q``: ``(vR, vs, hvR, hvs, endreason, iters)``."""
     import torch
 
     from xmtpu_torch.ops import manifold as mf
-    from xmtpu_torch.ops.qop import DenseQ
     from xmtpu_torch.solver import trust_region as tr
 
-    q = DenseQ(C)
     R, s_ex = inp["R"].double(), inp["s_ex"].double()
     lam = float(inp["lam"])
     egR, egs, CsR = mf.egrad_csr(q.apply, R, s_ex, lam)
@@ -290,9 +310,41 @@ def rel_gap(a, b) -> float:
                / max(1e-3, float(y.abs().max())) for x, y in zip(a[:4], b[:4]))
 
 
-def hold_kernels(C, inp, tag, with_cw: bool):
-    """One iteration and a whole Steihaug loop: kernel vs plain on the card.
-    Returns the max errors and the timings of this case."""
+def step_inputs(inp):
+    """``fused_tcg.prepare`` on ``inp``, with ``CWt`` holding the split
+    variant's product for the first iteration: ``(args, const, state, sc,
+    cfgsc)``."""
+    from xmtpu_torch.ops import fused_tcg as ft
+    from xmtpu_torch.ops import manifold as mf
+
+    n, _, o = inp["R"].shape
+    args = {k: inp[k] for k in ("R", "s_ex", "CsR", "egR", "egs", "pgR",
+                                 "pgs", "gradnorm", "delta", "lam", "cfg",
+                                 "minv")}
+    const, state, sc, cfgsc = ft.prepare(**args)
+    Wf = mf.flatten(ft.from_t(state[4] * const["s_ex_t"]
+                                 + const["Rt"] * state[5], n, o))
+    const["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * inp["qmul"](Wf))))
+    return args, const, state, sc, cfgsc
+
+
+def time_step(const, state, sc, cfgsc, max_inner: int, reps: int = 200):
+    """Device ms per ``tcg_step`` launch (profiler durations) on clones of
+    the inputs, the carry reset to ``sc`` before every launch so that none
+    returns early."""
+    from xmtpu_torch.ops import fused_tcg as ft
+
+    ck = [v.clone() for v in const.values()]
+    sk = [t.clone() for t in state]
+    sck = sc.clone()
+    return device_ms(lambda: ft.tcg_step(*ck, *sk, sck, cfgsc, max_inner),
+                     reps, setup=lambda: sck.copy_(sc))
+
+
+def hold_kernels(q64, inp, tag, with_cw: bool):
+    """One iteration and a whole Steihaug loop: kernel vs plain on the card;
+    ``q64`` is the f64 operator of the reference loop.  Returns the max
+    errors, the timings and the launch geometry of this case."""
     import torch
 
     from xmtpu_torch.ops import fused_tcg as ft
@@ -301,16 +353,12 @@ def hold_kernels(C, inp, tag, with_cw: bool):
     R = inp["R"]
     n, _, o = R.shape
     max_inner = int(inp["cfg"].max_inner)
-    args = {k: inp[k] for k in ("R", "s_ex", "CsR", "egR", "egs", "pgR",
-                                 "pgs", "gradnorm", "delta", "lam", "cfg",
-                                 "minv")}
-    const, state, sc, cfgsc = ft.prepare(**args)
+    args, const, state, sc, cfgsc = step_inputs(inp)
     C32 = ft.dense_matrix(inp["qmul"], n) if with_cw else None
-    if not with_cw:
-        Wf = mf.flatten(ft.from_t(state[4] * const["s_ex_t"]
-                                     + const["Rt"] * state[5], n, o))
-        const["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * inp["qmul"](Wf))))
-    out = {}
+    blocks, threads = ft.step_geometry(n, o)
+    out = {"geometry": f"{blocks} block{'s' * (blocks > 1)} "
+                       f"({'a cluster' if blocks > 1 else 'no cluster'}) "
+                       f"x {threads} threads"}
 
     # --- one iteration --------------------------------------------------
     def clone_all():
@@ -319,6 +367,7 @@ def hold_kernels(C, inp, tag, with_cw: bool):
 
     ck, sk, sck = clone_all()
     cp, sp, scp = clone_all()
+    cr, sr, scr = clone_all()
     if with_cw:
         ft.tcg_cw_dense(C32, ck["Rt"], ck["s_ex_t"], sk[4], sk[5], sck,
                         ck["CWt"], max_inner)
@@ -330,9 +379,14 @@ def hold_kernels(C, inp, tag, with_cw: bool):
                                      cp["CWt"], 5e-4 * scale, 5e-3)
         # feed both steps the same product
         ck["CWt"].copy_(cp["CWt"])
+        cr["CWt"].copy_(cp["CWt"])
     ft.tcg_step(*ck.values(), *sk, sck, cfgsc, max_inner)
+    ft.tcg_step(*cr.values(), *sr, scr, cfgsc, max_inner)
     ft.tcg_step_plain(*cp.values(), *sp, scp, cfgsc, max_inner)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((*sk, sck), (*sr, scr))):
+        raise AssertionError(f"{tag} tcg_step: two launches on the same "
+                             f"inputs differ")
     sc_k, sc_p = sck.tolist(), scp.tolist()
     if [sc_k[i] for i in (ft.S_ER, ft.S_DONE, ft.S_I)] != \
             [sc_p[i] for i in (ft.S_ER, ft.S_DONE, ft.S_I)]:
@@ -387,7 +441,7 @@ def hold_kernels(C, inp, tag, with_cw: bool):
     # the largest gap of the plain version, as it runs and under three
     # seeded f32-rounding perturbations of its products (one sample of that
     # band ranged over 1.4e-2-5.4e-2 at scene A's escape point across runs).
-    res_64 = f64_loop(C, inp)
+    res_64 = f64_loop(q64, inp)
     d64 = rel_gap(res_p, res_64)
     out["loop"], out["loop_f64_gap"] = (res_k[4], res_k[5]), d64
     if d64 <= 2e-3 and res_p[4:] == res_64[4:]:
@@ -418,12 +472,11 @@ def hold_kernels(C, inp, tag, with_cw: bool):
 
     # --- timings -----------------------------------------------------------
     ck, sk, sck = clone_all()
-    sc0 = sc.clone()
     reps = 200
-    reset = lambda: sck.copy_(sc0)  # noqa: E731 — a live carry every launch
+    reset = lambda: sck.copy_(sc)  # noqa: E731 — a live carry every launch
     step = lambda: ft.tcg_step(*ck.values(), *sk, sck, cfgsc,  # noqa: E731
                                max_inner)
-    out["step_ms"] = device_ms(step, reps, setup=reset)
+    out["step_ms"] = time_step(const, state, sc, cfgsc, max_inner, reps)
     out["step_enqueue_ms"] = cuda_ms(step, reps, setup=reset)
     ck, sk, sck = clone_all()
     out["step_plain_ms"] = cuda_ms(
@@ -447,6 +500,25 @@ def hold_kernels(C, inp, tag, with_cw: bool):
                                          reps)
         out["cw_bound"] = bound_ms(*cw_bytes_ops(n, o))
     return out
+
+
+def hold_case(tag, q64, inp, with_cw: bool) -> dict:
+    """:func:`hold_kernels` on one case, logged."""
+    r = hold_kernels(q64, inp, tag, with_cw)
+    msg = (f"[smoke] {tag}: {r['geometry']}; step err {r['step_err'][1]:.1e} "
+           f"(two launches: same bits) loop (endreason, iters)={r['loop']} "
+           f"err {r['loop_err'][1]:.1e} (f32 noise band vs f64 loop "
+           f"{r['loop_f64_gap']:.1e}); tcg_step {r['step_ms']:.4f} ms "
+           f"(enqueue {r['step_enqueue_ms']:.4f}) plain "
+           f"{r['step_plain_ms']:.4f} ms bound {r['step_bound'][0]:.5f}")
+    if with_cw:
+        msg += (f"; tcg_cw_dense err {r['cw_err'][1]:.1e} "
+                f"{r['cw_ms']:.4f} ms (enqueue {r['cw_enqueue_ms']:.4f}) "
+                f"plain {r['cw_plain_ms']:.4f} ms "
+                f"matmul {r['cw_library_ms']:.4f} ms bound "
+                f"{r['cw_bound'][0]:.5f}")
+    log(msg)
+    return r
 
 
 def segsum_bytes_ops(rows: int, S: int, D: int, item: int, idx_words: int):
@@ -651,6 +723,7 @@ def run(dev, card: str) -> int:
     from xmtpu_torch import _build
     from xmtpu_torch.ops import fused_tcg as ft
     from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.ops.qop import DenseQ, cast_qop
     from xmtpu_torch.solver import trust_region as tr
     from xmtpu_torch.ops.schurq import SchurQ
     from xmtpu_torch.pipeline import xm2
@@ -674,16 +747,18 @@ def run(dev, card: str) -> int:
 
     # ---- 2. kernels vs plain ---------------------------------------------
     lam = 0.0
+    f32 = torch.float32
     C_A, gen_A, asm_A = scene(SCENE_A, dev)
     nA = C_A.shape[0] // 3
+    qA, qA32 = DenseQ(C_A), DenseQ(C_A.to(f32))
     cases = []
     R3 = mf.identity_frames(nA, 3, device=dev)
     ones = torch.ones((nA,), dtype=torch.float64, device=dev)
-    cases.append(("A o=3", C_A, f32_phase_inputs(C_A, R3, ones), True))
+    cases.append(("A o=3", qA, f32_phase_inputs(qA32, R3, ones), True))
     # later in the phase the Steihaug loop runs tens of iterations before
     # its superlinear stop (the first outer iteration stops at the boundary)
-    cases.append((f"A o=3 outer {LONG_A}", C_A,
-                  f32_phase_inputs(C_A, R3, ones, LONG_A), True))
+    cases.append((f"A o=3 outer {LONG_A}", qA,
+                  f32_phase_inputs(qA32, R3, ones, LONG_A), True))
     # the rank-4 stage's start: rank-3 solution + escape linesearch
     r3 = solve_arrays(C_A, max_rank=3, tol=1e-6, precision="mixed",
                       inner_f32=True, verbose=False, device=dev)
@@ -698,39 +773,28 @@ def run(dev, card: str) -> int:
                                        tr.TRConfig())
     if not ok:
         raise AssertionError("scene A escape linesearch failed")
-    cases.append(("A o=4", C_A, f32_phase_inputs(C_A, R4, s3), True))
+    cases.append(("A o=4", qA, f32_phase_inputs(qA32, R4, s3), True))
+    del qA32
     C_512, _, _ = scene(SCENE_512, dev)
     n512 = C_512.shape[0] // 3
-    cases.append(("n512 o=3", C_512, f32_phase_inputs(
-        C_512, mf.identity_frames(n512, 3, device=dev),
+    cases.append(("n512 o=3", DenseQ(C_512), f32_phase_inputs(
+        DenseQ(C_512.to(f32)), mf.identity_frames(n512, 3, device=dev),
         torch.ones((n512,), dtype=torch.float64, device=dev)), True))
     del C_512
     C_B, gen_B, asm_B = scene(SCENE_B, dev)
     nB = C_B.shape[0] // 3
+    qB, qB32 = DenseQ(C_B), DenseQ(C_B.to(f32))
     RB = mf.identity_frames(nB, 3, device=dev)
     onesB = torch.ones((nB,), dtype=torch.float64, device=dev)
-    cases.append(("B o=3", C_B, f32_phase_inputs(C_B, RB, onesB), False))
-    cases.append((f"B o=3 outer {LONG_B}", C_B,
-                  f32_phase_inputs(C_B, RB, onesB, LONG_B), False))
+    cases.append(("B o=3", qB, f32_phase_inputs(qB32, RB, onesB), False))
+    cases.append((f"B o=3 outer {LONG_B}", qB,
+                  f32_phase_inputs(qB32, RB, onesB, LONG_B), False))
+    del qB32
 
     held = {}
-    for tag, C, inp, with_cw in cases:
-        r = hold_kernels(C, inp, tag, with_cw)
-        held[tag] = r
-        msg = (f"[smoke] {tag}: step err {r['step_err'][1]:.1e} loop "
-               f"(endreason, iters)={r['loop']} err {r['loop_err'][1]:.1e} "
-               f"(f32 noise band vs f64 loop {r['loop_f64_gap']:.1e}); "
-               f"tcg_step {r['step_ms']:.4f} ms (enqueue "
-               f"{r['step_enqueue_ms']:.4f}) plain {r['step_plain_ms']:.4f} "
-               f"ms bound {r['step_bound'][0]:.5f}")
-        if with_cw:
-            msg += (f"; tcg_cw_dense err {r['cw_err'][1]:.1e} "
-                    f"{r['cw_ms']:.4f} ms (enqueue {r['cw_enqueue_ms']:.4f}) "
-                    f"plain {r['cw_plain_ms']:.4f} ms "
-                    f"matmul {r['cw_library_ms']:.4f} ms bound "
-                    f"{r['cw_bound'][0]:.5f}")
-        log(msg)
-    del cases
+    for case in cases:
+        held[case[0]] = hold_case(*case)
+    del cases, qA, qB
 
     # ---- 3. scene A: the mixed certified staircase -------------------------
     log(f"[smoke] scene A: make_scene {gen_A:.2f} s, assembly {asm_A:.3f} s")
@@ -814,6 +878,21 @@ def run(dev, card: str) -> int:
             f"(rel {c['max_rel_err']:.1e}) {c['ms']:.4f} ms plain "
             f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
             f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]})")
+    # tcg_step at the implicit size: the split variant on the f32 cast of
+    # Q_C, the f64 loop on Q_C itself
+    nC = scC.N
+    qC32 = cast_qop(Q_C, f32)
+    RC = mf.identity_frames(nC, 3, device=dev)
+    onesC = torch.ones((nC,), dtype=torch.float64, device=dev)
+    for tag, outer in (("C o=3", 0), (f"C o=3 outer {LONG_C}", LONG_C)):
+        held[tag] = hold_case(tag, Q_C, f32_phase_inputs(qC32, RC, onesC,
+                                                         outer), False)
+    if held[f"C o=3 outer {LONG_C}"]["loop"][1] < LONG_C_ITERS:
+        raise AssertionError(f"scene C outer {LONG_C}: the Steihaug loop ran "
+                             f"{held[f'C o=3 outer {LONG_C}']['loop']}, "
+                             f"expected at least {LONG_C_ITERS} inner "
+                             f"iterations")
+    del qC32
 
     # ---- 6. scene B through the implicit operator ---------------------------
     scB = make_scene(**SCENE_B)
@@ -878,6 +957,13 @@ def run(dev, card: str) -> int:
     check_rotations("scene C", rot_C, ROT_C)
     if counts["C"]["sorted_segment_sum"] <= 0 or counts["C"]["tcg_step"] <= 0:
         raise AssertionError(f"scene C: a kernel never launched {counts['C']}")
+    # tcg_step's device time inside the solve, where a SchurQ apply runs
+    # between its launches (a second, traced solve; as chip_profile.py reads)
+    step_in_C = kernel_mean_ms(lambda: xm2._solve_recover(
+        Q_C, None, True, 5, 1e-1, 0.0, 1000.0, False, "mixed", device=dev),
+        "tcg_step_kernel")
+    log(f"[smoke] scene C traced solve: tcg_step {step_in_C[0]:.4f} ms a "
+        f"launch over {step_in_C[1]} launches")
     del Q_C
 
     # ---- 8. xm2_solve(implicit=True) on scene B ----------------------------
@@ -900,7 +986,7 @@ def run(dev, card: str) -> int:
     check_rotations("xm2_solve scene B", rot_X, ROT_XM2_B)
 
     # ---- 9. report ------------------------------------------------------------
-    a, b = held["A o=3"], held["B o=3"]
+    a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
     step_err = worst([r[k] for r in held.values()
                       for k in ("step_err", "loop_err")])
     cw_err = worst([r["cw_err"] for r in held.values() if "cw_err" in r])
@@ -930,12 +1016,17 @@ def run(dev, card: str) -> int:
              replaces="xmtpu/ops/pallas_tcg.py:98",
              launches=total("tcg_step"),
              max_abs_err=step_err[0], max_rel_err=step_err[1],
-             ms=b["step_ms"], enqueue_ms=b["step_enqueue_ms"],
-             plain_ms=b["step_plain_ms"],
-             bound_ms=b["step_bound"][0], bound_by=b["step_bound"][1],
-             library_ms=None,
-             shape=f"n={nB} o=3 (scene B); scene A n={nA}: "
-                   f"{a['step_ms']:.4f} ms"),
+             ms=c["step_ms"], enqueue_ms=c["step_enqueue_ms"],
+             plain_ms=c["step_plain_ms"],
+             bound_ms=c["step_bound"][0], bound_by=c["step_bound"][1],
+             library_ms=None, solve_ms=step_in_C[0],
+             geometry=c["geometry"],
+             shape=f"n={scC.N} o=3 (scene C, split variant on the f32 cast "
+                   f"of SchurQ); solve_ms: mean over the {step_in_C[1]} "
+                   f"launches of a traced scene C solve; scene B n={nB}: "
+                   f"{b['step_ms']:.4f} ms, bound {b['step_bound'][0]:.5f}, "
+                   f"{b['geometry']}; scene A n={nA}: {a['step_ms']:.4f} ms, "
+                   f"bound {a['step_bound'][0]:.6f}, {a['geometry']}"),
         dict(name="tcg_cw_dense", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",
              replaces="xmtpu/ops/pallas_tcg.py:109",

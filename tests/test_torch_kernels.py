@@ -30,22 +30,41 @@ from xmtpu_torch.pipeline.synthetic import make_scene
 from xmtpu_torch.solver import trust_region as tr
 
 
-def _inputs(n=12, o=3, seed=3, dense=True, device="cpu"):
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(3 * n, 3 * n))
-    C = torch.tensor(A @ A.T / (3 * n) + np.eye(3 * n), dtype=torch.float32,
+def _lowrank_spd(n, rng, device, k=8):
+    """A cheap SPD operator at large n: ``C = diag(d) + U U^T`` applied as
+    ``d Y + U (U^T Y)``, and its (n, 3, 3) diagonal blocks."""
+    d = torch.tensor(rng.uniform(1.0, 2.0, size=3 * n), dtype=torch.float32,
                      device=device)
+    U = torch.tensor(rng.normal(size=(3 * n, k)) / np.sqrt(k),
+                     dtype=torch.float32, device=device)
+    Ub = U.reshape(n, 3, k)
+    diag = Ub @ Ub.transpose(1, 2) + torch.diag_embed(d.reshape(n, 3))
+    return (lambda Y: d[:, None] * Y + U @ (U.T @ Y)), diag
+
+
+def _inputs(n=12, o=3, seed=3, dense=True, device="cpu"):
+    """Real tCG inputs at ``n`` cameras: a formed SPD ``C`` for ``n <= 64``
+    (through ``DenseQ`` when ``dense``), a low-rank-plus-diagonal operator
+    above."""
+    rng = np.random.default_rng(seed)
+    if n <= 64:
+        A = rng.normal(size=(3 * n, 3 * n))
+        C = torch.tensor(A @ A.T / (3 * n) + np.eye(3 * n),
+                         dtype=torch.float32, device=device)
+        qmul = DenseQ(C).apply if dense else (lambda Y: C @ Y)
+        diag = DenseQ(C).diag_blocks()
+    else:
+        qmul, diag = _lowrank_spd(n, rng, device)
     R = mf.mgs_rows(torch.tensor(rng.normal(size=(n, 3, o)),
                                  dtype=torch.float32, device=device))
     s = np.abs(rng.normal(size=n)) + 0.5
     s[0] = 1.0
     s_ex = torch.tensor(s, dtype=torch.float32, device=device)
-    qmul = DenseQ(C).apply if dense else (lambda Y: C @ Y)
     egR, egs, CsR = mf.egrad_csr(qmul, R, s_ex, 0.0)
     pgR, pgs = mf.project(R, s_ex[1:], egR, egs)
     gradnorm = np.float32(torch.sqrt(mf.inner(pgR, pgR, pgs, pgs,
                                               s_ex[1:])).item())
-    minv = tr._build_minv(DenseQ(C).diag_blocks(), s_ex, np.float32(0.0))
+    minv = tr._build_minv(diag, s_ex, np.float32(0.0))
     return (qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm,
             np.float32(1.0), np.float32(0.0)), minv
 
@@ -84,6 +103,24 @@ def test_dense_gate():
     assert C32.dtype == torch.float32 and C32.shape == (1536, 1536)
 
 
+@pytest.mark.parametrize("o", [3, 5, 12, 32])
+@pytest.mark.parametrize("n", [1, 31, 120, 129, 1000, 1934, 6144, 20001])
+def test_step_geometry_covers_every_camera(n, o):
+    """``tcg_step``'s geometry: one block up to ``CAMS_PER_BLOCK`` cameras,
+    at most one cluster, threads within the kernel's launch bounds, no block
+    without a camera, and the kernel's camera loop (thread ``t`` of block
+    ``b`` takes ``b*threads + t + k*blocks*threads``) visits each camera
+    exactly once."""
+    blocks, threads = ft.step_geometry(n, o)
+    assert 1 <= blocks <= ft.MAX_CLUSTER
+    assert threads % 32 == 0 and 32 <= threads <= ft.max_threads(o)
+    assert (blocks == 1) == (n <= ft.CAMS_PER_BLOCK)
+    assert (blocks - 1) * threads < n
+    first = np.arange(blocks * threads)
+    cams = np.concatenate([np.arange(f, n, blocks * threads) for f in first])
+    assert np.array_equal(np.sort(cams), np.arange(n))
+
+
 def test_done_carry_is_a_no_op():
     """On a done carry both kernels (here their twins) leave every array
     untouched, so the host may enqueue iterations past the end."""
@@ -117,13 +154,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# one block; several blocks (n not a multiple of their threads); the
+# largest cluster
+CARD_N = [12, 1000, 6001]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("o", [3, 5])
-@pytest.mark.parametrize("dense", [True, False])
-def test_kernels_match_twins_on_card(o, dense, cuda_device):
-    args, minv = _inputs(o=o, dense=dense)
+@pytest.mark.parametrize("n,dense", [(12, True), (12, False), (1000, False),
+                                     (6001, False)])
+def test_kernels_match_twins_on_card(o, n, dense, cuda_device):
+    args, minv = _inputs(n=n, o=o, dense=dense)
     ref = ft.inner_tcg_fused(*args, CFG, minv)
-    args, minv = _inputs(o=o, dense=dense, device=cuda_device)
+    args, minv = _inputs(n=n, o=o, dense=dense, device=cuda_device)
     step0, cw0 = ft.tcg_step.launches, ft.tcg_cw_dense.launches
     got = ft.inner_tcg_fused(*args, CFG, minv)
     torch.cuda.synchronize()
@@ -132,18 +175,40 @@ def test_kernels_match_twins_on_card(o, dense, cuda_device):
     _assert_loop_close(got, ref)
 
 
-@pytest.mark.cuda
-def test_one_iteration_matches_twin_on_card(cuda_device):
-    out = []
-    for device in ("cpu", cuda_device):
-        args, minv = _inputs(o=3, device=device)
-        const, state, sc, cfgsc = ft.prepare(*args[1:], CFG, minv)
-        C32 = ft.dense_matrix(args[0], args[1].shape[0])
+def _first_step(n, o, device):
+    """``prepare`` on :func:`_inputs` with ``CWt`` holding the first
+    iteration's product (``tcg_cw_dense`` at ``n <= 64``, else the split
+    product)."""
+    args, minv = _inputs(n=n, o=o, device=device)
+    const, state, sc, cfgsc = ft.prepare(*args[1:], CFG, minv)
+    C32 = ft.dense_matrix(args[0], n)
+    if C32 is not None:
         ft.tcg_cw_dense(C32, const["Rt"], const["s_ex_t"], state[4],
                         state[5], sc, const["CWt"], 25)
+    else:
+        W = mf.flatten(ft.from_t(state[4] * const["s_ex_t"]
+                                 + const["Rt"] * state[5], n, o))
+        const["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * args[0](W))))
+    return const, state, sc, cfgsc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [3, 5])
+@pytest.mark.parametrize("n", CARD_N)
+def test_one_iteration_matches_twin_on_card(n, o, cuda_device):
+    """One launch against the twin, and a second launch on clones of the
+    same inputs gives the same bits."""
+    out = []
+    for device in ("cpu", cuda_device):
+        const, state, sc, cfgsc = _first_step(n, o, device)
+        again = ([c.clone() for c in const.values()],
+                 [t.clone() for t in state], sc.clone())
         ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
         out.append((state, sc.cpu()))
+    ft.tcg_step(*again[0], *again[1], again[2], cfgsc, 25)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((*state, sc),
+                                                 (*again[1], again[2])))
     (s_plain, sc_plain), (s_kern, sc_kern) = out
     assert torch.equal(sc_kern[ft.S_ER:], sc_plain[ft.S_ER:])
     torch.testing.assert_close(sc_kern[:ft.S_ER], sc_plain[:ft.S_ER],
@@ -151,6 +216,23 @@ def test_one_iteration_matches_twin_on_card(cuda_device):
     for a, b in zip(s_kern, s_plain):
         scale = max(1e-3, float(b.abs().max()))
         torch.testing.assert_close(a.cpu(), b, atol=5e-4 * scale, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CARD_N)
+def test_done_carry_is_a_no_op_on_card(n, cuda_device):
+    """A done carry, or one at max_inner, leaves every array untouched at
+    every geometry: every block returns before the first barrier."""
+    for slot, value in ((ft.S_DONE, 1.0), (ft.S_I, 25.0)):
+        const, state, sc, cfgsc = _first_step(n, 3, cuda_device)
+        sc[slot] = value
+        before = [x.clone() for x in (*const.values(), *state, sc)]
+        n0 = ft.tcg_step.launches
+        ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
+        torch.cuda.synchronize()
+        assert ft.tcg_step.launches == n0 + 1
+        after = [*const.values(), *state, sc]
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
 
 
 @pytest.mark.cuda
@@ -241,16 +323,129 @@ def test_segsum_kernel_matches_twin_on_card(dtype, D, cuda_device):
                                atol=_seg_tol(dtype, vals, ids, 2500), rtol=0)
 
 
+def _layout_ids(layout, E, S, sb, seed):
+    """Sorted segment ids for the blocked-layout cases:
+    ``random`` — uniform over [0, S) (sparse when E < S: empty blocks);
+    ``scene_c`` — scene C's landmark ordering in miniature, ~11 rows a
+    segment, so each block spans many visits and segments straddle them;
+    ``first_only`` — block 1 holds only its first id (its padding equals
+    every real id), block 2 is empty, the rest random;
+    ``long_run`` — one segment of E/2 rows across many visits."""
+    rng = np.random.default_rng(seed)
+    if layout in ("random", "scene_c"):
+        return np.sort(rng.integers(0, S, E)).astype(np.int32)
+    if layout == "first_only":
+        ids = np.concatenate([rng.integers(0, sb, E // 3),
+                              np.full(E // 3, sb),
+                              rng.integers(3 * sb, S, E - 2 * (E // 3))])
+        return np.sort(ids).astype(np.int32)
+    assert layout == "long_run"
+    ids = rng.integers(0, S, E)
+    ids[: E // 2] = S // 2 + 1
+    return np.sort(ids).astype(np.int32)
+
+
+BLOCKED_CASES = [(30000, 100000, 512, 2048, "random"),
+                 (4096, 512, 128, 128, "random"),
+                 (3, 10000, 512, 2048, "random"),
+                 (270336, 24576, 512, 2048, "scene_c"),
+                 (20000, 8192, 128, 1024, "first_only"),
+                 (20000, 3000, 128, 512, "long_run")]
+
+
+def _block_lower_bound(key_at, lo, hi, key, nt):
+    """numpy mirror of ``block_lower_bound`` in ``csrc/segsum.cu``: rounds
+    of ``nt`` evenly spaced probes, each counting the probes below ``key``."""
+    while hi > lo:
+        step = -(-(hi - lo) // nt)
+        p = lo + np.arange(nt) * step
+        live = p < hi
+        c = int((key_at(p[live]) < key).sum())
+        if c == 0:
+            hi = lo
+        else:
+            lo, hi = lo + (c - 1) * step + 1, min(lo + c * step, hi)
+    return lo
+
+
+def _blocked_runs(ids, S, chunk, sb, tile, nt):
+    """The rows ``blocked_sum`` in ``csrc/segsum.cu`` sums for each segment,
+    found as it finds them: the block's visits by their first ids, its real
+    rows up to the first drop of its last visit, the tile's rows by the
+    probe search, each segment's run where the ids change.  ``(S, 2)``
+    [start, end), empty runs as [0, 0)."""
+    G = len(ids) // chunk
+    runs = np.zeros((S, 2), np.int64)
+    tiles = -(-sb // tile)
+    for b in range(-(-S // sb)):
+        v0, v1 = (_block_lower_bound(lambda g: ids[g * chunk] // sb, 0, G, k,
+                                     nt) for k in (b, b + 1))
+        if v1 <= v0:
+            continue
+        last = ids[(v1 - 1) * chunk:v1 * chunk]
+        drop = np.flatnonzero(last[1:] < last[:-1])
+        eb = (v1 - 1) * chunk + (1 + drop[0] if len(drop) else chunk)
+        for t in range(tiles):
+            s0 = b * sb + t * tile
+            s1 = min(s0 + tile, (b + 1) * sb, S)
+            if s0 >= s1:
+                continue
+            r0, r1 = (_block_lower_bound(lambda q: ids[q], v0 * chunk, eb, k,
+                                         nt) for k in (s0, s1))
+            q = np.arange(r0, r1)
+            head = (q == r0) | (ids[np.maximum(q - 1, 0)] != ids[q])
+            tail = (q == r1 - 1) | (ids[np.minimum(q + 1, len(ids) - 1)]
+                                    != ids[q])
+            runs[ids[q[head]], 0] = q[head]
+            runs[ids[q[tail]], 1] = q[tail] + 1
+    return runs
+
+
+@pytest.mark.parametrize("nt", [256, 5])
+@pytest.mark.parametrize("E,S,chunk,sb,layout", BLOCKED_CASES)
+def test_blocked_run_search_matches_brute_force(E, S, chunk, sb, layout, nt):
+    """The blocked kernel's run search (mirrored in numpy; ``nt=5`` forces
+    several probe rounds) on ``schedule_edges`` output: every segment's run
+    holds only its own id, holds every real row of that id, and the runs
+    sum the values to the brute-force segment sums."""
+    ids = _layout_ids(layout, E, S, sb, seed=E)
+    ids_s, gidx, pad, blk, first, band = ss.schedule_edges(
+        ids, S, chunk=chunk, seg_block=sb)
+    tile = 256 // 6                      # the kernel's tile at D = 6
+    runs = _blocked_runs(ids_s.astype(np.int64), S, chunk, sb, tile, nt)
+    lengths = runs[:, 1] - runs[:, 0]
+    assert (lengths >= 0).all()
+    # every row of every run, beside the segment whose run it is
+    seg = np.repeat(np.arange(S), lengths)
+    row = (np.arange(lengths.sum()) - np.repeat(np.cumsum(lengths) - lengths,
+                                                lengths)
+           + np.repeat(runs[:, 0], lengths))
+    assert (ids_s[row] == seg).all()
+    real = np.flatnonzero(~pad)
+    owner = ids_s[real]
+    assert ((real >= runs[owner, 0]) & (real < runs[owner, 1])).all()
+    vals = np.random.default_rng(1).normal(size=E)
+    vs = vals[gidx] * ~pad
+    csum = np.concatenate([[0.0], np.cumsum(vs)])
+    got = csum[runs[:, 1]] - csum[runs[:, 0]]
+    want = np.zeros(S)
+    np.add.at(want, ids, vals)
+    np.testing.assert_allclose(got, want, atol=1e-9)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("E,S,chunk,sb", [(30000, 100000, 512, 2048),
-                                          (4096, 512, 128, 128),
-                                          (3, 10000, 512, 2048)])
+@pytest.mark.parametrize("E,S,chunk,sb,layout", BLOCKED_CASES)
 def test_segsum_blocked_kernel_matches_twin_on_card(dtype, E, S, chunk, sb,
-                                                    cuda_device):
-    """Sparse ids over many blocks, chunks straddling small blocks, and a
-    huge empty middle (edge-less blocks come out zero)."""
-    vals, ids = _seg_case(E, S, 2, dtype, seed=E)
+                                                    layout, cuda_device):
+    """Sparse ids over many blocks, chunks straddling small blocks, a huge
+    empty middle (edge-less blocks come out zero), scene C's shape, a block
+    holding only its first id, and one segment across many visits; D = 6
+    (the kernel's tile of 42 segments) and D = 2."""
+    rng = np.random.default_rng(E)
+    ids = _layout_ids(layout, E, S, sb, seed=E)
+    D = 6 if layout != "random" else 2
+    vals = rng.normal(size=(E, D)).astype(dtype)
     ids_s, gidx, pad, blk, first, band = ss.schedule_edges(
         ids, S, chunk=chunk, seg_block=sb)
     vs = vals[gidx] * ~pad[:, None]

@@ -38,7 +38,10 @@
 // j >= o are loaded as zeros (they add exact zeros to every sum) and never
 // stored.  Instantiated for MAXO = 4, 8, 16, 32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -65,6 +68,7 @@ struct StepArgs {
   float* sc;            // (8,) scalar carry, updated in place
   const float* cfg;     // (4,) lam, delta, gradnorm, rdotr_min
   float* work;          // ((2*3o + 1), n) thread-private scratch
+  float* gpart;         // (6 * blocks,) block partials (cooperative grid)
   int n;
   int o;
   int max_inner;
@@ -154,13 +158,66 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* smem) {
   __syncthreads();  // smem is reused by the next reduction
 }
 
+// Threads a tcg_step block may have: the cap __launch_bounds__ gives the
+// compiler, so that a thread's per-camera rows stay in registers (at most
+// 128 registers a thread for MAXO <= 8, 255 above).
 template <int MAXO>
-__global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
+struct StepCap {
+  static constexpr int threads = MAXO <= 8 ? 512 : 256;
+};
+constexpr int MAX_CLUSTER = 16;   // blocks of one tcg_step launch
+constexpr int MAX_GRID = 264;     // blocks of one cooperative launch
+
+// After block_sum: v holds this block's partials (the same in every thread).
+// On return v holds the sums over every block of the launch, added in block
+// order, so every block holds the same bits.  GRID: the partials go through
+// the global scratch gpart and a grid-wide barrier; otherwise the blocks are
+// one cluster and read each other's partials through distributed shared
+// memory.  mine: this reduction's own slot in shared memory (NV floats);
+// allp: every block's partials (blocks * NV floats).
+template <int NV, bool GRID>
+__device__ __forceinline__ void cross_sum(float (&v)[NV], float* mine,
+                                          float* allp, float* gpart) {
+  const int nb = gridDim.x, m = nb * NV;
+  if constexpr (GRID) {
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int q = 0; q < NV; ++q) gpart[blockIdx.x * NV + q] = v[q];
+    cg::this_grid().sync();
+    for (int t = threadIdx.x; t < m; t += blockDim.x) allp[t] = __ldcg(gpart + t);
+  } else {
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int q = 0; q < NV; ++q) mine[q] = v[q];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int t = threadIdx.x; t < m; t += blockDim.x)
+      allp[t] = *cluster.map_shared_rank(mine + t % NV, t / NV);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    float acc = 0.f;
+    for (int b = 0; b < nb; ++b) acc += allp[b * NV + q];
+    v[q] = acc;
+  }
+  __syncthreads();  // allp is reused by the next reduction
+}
+
+template <int MAXO, bool GRID>
+__global__ void __launch_bounds__(StepCap<MAXO>::threads)
+    tcg_step_kernel(StepArgs a) {
   __shared__ float red[4 * 32];
+  __shared__ float mine[2][4];
+  __shared__ float allp[4 * (GRID ? MAX_GRID : MAX_CLUSTER)];
   const float* sc = a.sc;
-  if (carry_stopped(sc, a.max_inner)) return;  // uniform across the block
+  // uniform across the launch: sc is written only after the last barrier
+  if (carry_stopped(sc, a.max_inner)) return;
 
   const int n = a.n, o = a.o;
+  const bool split = gridDim.x > 1;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
   const float lam = a.cfg[C_LAM], delta = a.cfg[C_DELTA];
   const float gradnorm = a.cfg[C_GNORM], rdotr_min = a.cfg[C_RMIN];
   const float rdotr = sc[S_RDOTR], rdotz = sc[S_RDOTZ];
@@ -172,7 +229,7 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
 
   // ---- phase 1: Hessian tail, ehess2rhess, pHp ---------------------------
   float part[2] = {0.f, 0.f};  // sum p.rh, sum ps rhs / s^2
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = first; i < n; i += stride) {
     float R[3][MAXO], P[3][MAXO], H[3][MAXO];
     load_rows<MAXO>(a.Rt, n, o, i, R);
     load_rows<MAXO>(a.pR, n, o, i, P);
@@ -214,9 +271,10 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
     rhs_w[i] = rhs;
   }
   block_sum<2>(part, red);
+  if (split) cross_sum<2, GRID>(part, mine[0], allp, a.gpart);
   const float pHp = part[0] + part[1];
 
-  // ---- Steihaug scalars (identical in every thread) ----------------------
+  // ---- Steihaug scalars (identical in every thread of every block) -------
   const float alpha = rdotz / pHp;
   const bool small = rdotr < rdotr_min;
   const bool negcurv = !small && (alpha <= 0.f);
@@ -232,7 +290,7 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
 
   // ---- phase 2: axpys, residual norms, preconditioner --------------------
   float sums[4] = {0.f, 0.f, 0.f, 0.f};  // rr_R, rr_s, rz_R, rz_s
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = first; i < n; i += stride) {
     float R[3][MAXO], Rn[3][MAXO], Z[3][MAXO];
     load_rows<MAXO>(a.Rt, n, o, i, R);
     const float su = a.ps[i], is2 = a.inv_s2[i], rhs = rhs_w[i];
@@ -281,6 +339,7 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
     store_rows<MAXO>(z_w, n, o, i, Z);
   }
   block_sum<4>(sums, red);
+  if (split) cross_sum<4, GRID>(sums, mine[1], allp, a.gpart + 2 * gridDim.x);
   const float rdotr_new = sums[0] + sums[1];
   const float rdotz_new = sums[2] + sums[3];
   const bool superlin =
@@ -289,7 +348,7 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
 
   // ---- phase 3: new search direction and the scalar carry ----------------
   if (normal) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    for (int i = first; i < n; i += stride) {
       for (int r = 0; r < 3 * o; ++r) {
         const size_t off = static_cast<size_t>(r) * n + i;
         a.pR[off] = -z_w[off] + beta * a.pR[off];
@@ -297,7 +356,7 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
       a.ps[i] = -(a.rs[i] * a.inv_ms[i]) + beta * a.ps[i];
     }
   }
-  if (threadIdx.x == 0) {
+  if (first == 0) {
     float* s = a.sc;
     if (normal) {
       s[S_VDOTV] = vdotv + 2.f * alpha * vdotp + alpha * alpha * pdotp;
@@ -313,6 +372,10 @@ __global__ void __launch_bounds__(1024) tcg_step_kernel(StepArgs a) {
                                                      : ER_MAX_INNER)));
     s[S_DONE] = (small || to_edge || superlin) ? 1.f : 0.f;
     s[S_I] = s_i + 1.f;
+  }
+  // no block of a cluster leaves while another may still read its mine[1]
+  if constexpr (!GRID) {
+    if (split) cg::this_cluster().sync();
   }
 }
 
@@ -362,12 +425,62 @@ __global__ void __launch_bounds__(kCwThreads)
   }
 }
 
+// One tcg_step launch of `blocks` blocks of `threads` threads (the geometry
+// of ops/fused_tcg.py step_geometry).  One block: a plain launch.  Several:
+// one thread-block cluster (grid == 0) or a cooperative grid (grid != 0).
+// A geometry the card cannot schedule returns cudaErrorLaunchOutOfResources.
 template <int MAXO>
-int launch_step(const StepArgs& a, cudaStream_t stream) {
-  int threads = ((a.n + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  tcg_step_kernel<MAXO><<<1, threads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+int launch_step(const StepArgs& a, int blocks, int threads, int grid,
+                cudaStream_t stream) {
+  if (threads < 32 || threads % 32 != 0 || threads > StepCap<MAXO>::threads ||
+      blocks < 1 || blocks > (grid ? MAX_GRID : MAX_CLUSTER))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (blocks == 1) {
+    tcg_step_kernel<MAXO, false><<<1, threads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (grid) {
+    auto kern = tcg_step_kernel<MAXO, true>;
+    StepArgs args = a;
+    void* params[] = {&args};
+    cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(kern), dim3(blocks), dim3(threads), params, 0,
+        stream);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  auto kern = tcg_step_kernel<MAXO, false>;
+  // per instantiation: the non-portable size (above 8) is allowed once, and
+  // each (blocks, threads) is checked against the card once
+  static bool nonportable = false;
+  static signed char fits[MAX_CLUSTER + 1][StepCap<MAXO>::threads / 32 + 1];
+  if (!nonportable) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    nonportable = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  signed char& fit = fits[blocks][threads / 32];
+  if (fit == 0) {
+    int clusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fit = clusters > 0 ? 1 : -1;
+  }
+  if (fit < 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <int MAXO>
@@ -397,16 +510,17 @@ int xm_tcg_step(const float* Rt, const float* s_ex, const float* sfree,
                 const float* CsRt, const float* minvRt, const float* inv_ms,
                 const float* CWt, float* vR, float* vs, float* rR, float* rs,
                 float* pR, float* ps, float* hvR, float* hvs, float* sc,
-                const float* cfg, float* work, int n, int o, int max_inner,
+                const float* cfg, float* work, float* gpart, int n, int o,
+                int max_inner, int blocks, int threads, int grid,
                 void* stream) {
   StepArgs a{Rt, s_ex, sfree, inv_s2, egs, Segrt, CsRt, minvRt, inv_ms, CWt,
-             vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, work, n, o,
+             vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, work, gpart, n, o,
              max_inner};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (o <= 4) return launch_step<4>(a, s);
-  if (o <= 8) return launch_step<8>(a, s);
-  if (o <= 16) return launch_step<16>(a, s);
-  if (o <= 32) return launch_step<32>(a, s);
+  if (o <= 4) return launch_step<4>(a, blocks, threads, grid, s);
+  if (o <= 8) return launch_step<8>(a, blocks, threads, grid, s);
+  if (o <= 16) return launch_step<16>(a, blocks, threads, grid, s);
+  if (o <= 32) return launch_step<32>(a, blocks, threads, grid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

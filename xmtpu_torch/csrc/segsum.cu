@@ -57,20 +57,6 @@ __device__ __forceinline__ T run_sum(const T* __restrict__ vals, int D, int d,
   return acc;
 }
 
-// first index i in the sorted a[0:n) with a[i] >= key
-__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 segsum_csr(const T* __restrict__ vals, const int* __restrict__ offsets,
@@ -81,68 +67,110 @@ segsum_csr(const T* __restrict__ vals, const int* __restrict__ offsets,
   out[t] = run_sum(vals, D, d, __ldg(offsets + s), __ldg(offsets + s + 1));
 }
 
-// first segment (relative to the block) of visit g's band window: the TPU
-// kernel's clamp, which keeps [start, start + band) inside the block
-__device__ __forceinline__ int window_start(const int* ids, const int* blk,
-                                            int g, int chunk, int sb,
-                                            int band) {
-  int local_first = __ldg(ids + static_cast<int64_t>(g) * chunk) -
-                    __ldg(blk + g) * sb;
-  return max(min(local_first, sb - band), 0);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-blocked_partial(const T* __restrict__ vals, const int* __restrict__ ids,
-                const int* __restrict__ blk, T* __restrict__ partial,
-                int chunk, int sb, int band, int D) {
-  extern __shared__ int sids[];  // this visit's chunk ids
-  __shared__ int npre;           // length of the sorted prefix
-  const int g = blockIdx.x;
-  const int* gid = ids + static_cast<int64_t>(g) * chunk;
-  for (int r = threadIdx.x; r < chunk; r += blockDim.x) sids[r] = gid[r];
-  if (threadIdx.x == 0) npre = chunk;
-  __syncthreads();
-  // padding rows follow the visit's real rows and carry the block's first
-  // id, so the first drop in the ids is where they start (an integer
-  // minimum: the same result whatever the order of the atomics)
-  for (int r = threadIdx.x + 1; r < chunk; r += blockDim.x) {
-    if (sids[r] < sids[r - 1]) atomicMin(&npre, r);
-  }
-  __syncthreads();
-  const int n = npre;
-  const int base = __ldg(blk + g) * sb + window_start(ids, blk, g, chunk, sb,
-                                                      band);
-  const T* gv = vals + static_cast<int64_t>(g) * chunk * D;
-  T* out = partial + static_cast<int64_t>(g) * band * D;
-  for (int jd = threadIdx.x; jd < band * D; jd += blockDim.x) {
-    int j = jd / D, d = jd % D;
-    int r0 = lower_bound(sids, n, base + j);
-    int r1 = lower_bound(sids, n, base + j + 1);
-    out[jd] = run_sum(gv, D, d, r0, r1);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-blocked_combine(const T* __restrict__ partial, const int* __restrict__ ids,
-                const int* __restrict__ blk, T* __restrict__ out, int G,
-                int S, int chunk, int sb, int band, int D) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(S) * D) return;
-  int s = static_cast<int>(t / D), d = static_cast<int>(t % D);
-  int b = s / sb;
-  // this block's visits are a contiguous run of the sorted blk
-  int lo = lower_bound(blk, G, b), hi = lower_bound(blk, G, b + 1);
-  T acc = T(0);
-  for (int g = lo; g < hi; ++g) {
-    int j = s - b * sb - window_start(ids, blk, g, chunk, sb, band);
-    if (j >= 0 && j < band) {
-      acc = acc + __ldg(partial + (static_cast<int64_t>(g) * band + j) * D +
-                        d);
+// Cooperative search by the whole thread block, for K keys at once: the
+// first index r in [lo, hi) with key_at(r) >= keys[k] (hi if none), where
+// key_at is non-decreasing on [lo, hi).  Each round probes blockDim.x evenly
+// spaced indices and counts the probes below the key, which shrinks the
+// interval blockDim.x-fold: two rounds up to blockDim.x^2 indices.  Every
+// thread gets the same answers; every thread must call it.
+template <int K, typename KeyAt>
+__device__ __forceinline__ void block_lower_bound(KeyAt key_at, int64_t lo,
+                                                  int64_t hi,
+                                                  const int (&keys)[K],
+                                                  int64_t (&res)[K]) {
+  int64_t l[K], h[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) l[k] = lo, h[k] = hi;
+  const int nt = blockDim.x;
+  while (true) {
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) open = open || h[k] > l[k];
+    if (!open) break;  // uniform: every thread holds the same l, h
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t span = h[k] - l[k];
+      const int64_t step = (span + nt - 1) / nt;
+      const int64_t p = l[k] + threadIdx.x * step;
+      const int c = __syncthreads_count(span > 0 && p < h[k] &&
+                                        key_at(p) < keys[k]);
+      if (span > 0) {
+        if (c == 0) {
+          h[k] = l[k];
+        } else {
+          const int64_t nl = l[k] + (c - 1) * step + 1;
+          h[k] = min(l[k] + c * step, h[k]);
+          l[k] = nl;
+        }
+      }
     }
   }
-  out[t] = acc;
+#pragma unroll
+  for (int k = 0; k < K; ++k) res[k] = l[k];
+}
+
+// One thread block per (output block b, tile of `tile` segments): every
+// output element of the tile in one pass, no partial array.
+//   1. b's visits [v0, v1): a visit's first row holds a real id of its
+//      block, or, in an empty visit, the block's first id, so
+//      ids[g * chunk] / sb is non-decreasing in g;
+//   2. b's real rows [B0, Eb): the block's span is sorted, and its padding
+//      (the block's first id, zero values) sits at the tail of its last
+//      visit, so Eb is the first drop of the ids in that visit (none: the
+//      padding equals every real id, and adding its zeros changes no sum);
+//   3. the tile's rows [r0, r1) by a cooperative search of [B0, Eb);
+//   4. each segment's run [start, end) marked in shared memory where the
+//      ids change (empty segments keep [0, 0));
+//   5. thread (j, d) sums column d of segment j's run in row order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+blocked_sum(const T* __restrict__ vals, const int* __restrict__ ids,
+            T* __restrict__ out, int G, int S, int chunk, int sb, int tile,
+            int D) {
+  extern __shared__ int runs[];  // start[tile], end[tile]
+  __shared__ int eb;
+  const int tiles = (sb + tile - 1) / tile;
+  const int b = blockIdx.x / tiles;
+  const int s0 = b * sb + (blockIdx.x - b * tiles) * tile;
+  const int s1 = min(min(s0 + tile, (b + 1) * sb), S);
+  if (s0 >= s1) return;  // uniform across the block
+  const int ns = s1 - s0;
+  int* start = runs;
+  int* end = runs + tile;
+  for (int j = threadIdx.x; j < ns; j += blockDim.x) start[j] = end[j] = 0;
+
+  int64_t v[2];
+  block_lower_bound<2>(
+      [&](int64_t g) { return __ldg(ids + g * chunk) / sb; }, 0, G,
+      {b, b + 1}, v);
+  int64_t r[2] = {0, 0};
+  if (v[1] > v[0]) {
+    const int64_t B0 = v[0] * chunk, B1 = v[1] * chunk;
+    const int64_t L0 = B1 - chunk;
+    if (threadIdx.x == 0) eb = static_cast<int>(B1 - L0);
+    __syncthreads();
+    for (int64_t q = L0 + 1 + threadIdx.x; q < B1; q += blockDim.x)
+      if (__ldg(ids + q) < __ldg(ids + q - 1))
+        atomicMin(&eb, static_cast<int>(q - L0));  // an integer minimum
+    __syncthreads();
+    block_lower_bound<2>([&](int64_t q) { return __ldg(ids + q); }, B0,
+                         L0 + eb, {s0, s1}, r);
+  }
+  __syncthreads();  // start/end zeroed before they are marked
+  for (int64_t q = r[0] + threadIdx.x; q < r[1]; q += blockDim.x) {
+    const int id = __ldg(ids + q);
+    if (q == r[0] || __ldg(ids + q - 1) != id)
+      start[id - s0] = static_cast<int>(q - r[0]);
+    if (q + 1 == r[1] || __ldg(ids + q + 1) != id)
+      end[id - s0] = static_cast<int>(q + 1 - r[0]);
+  }
+  __syncthreads();
+  const T* tv = vals + r[0] * D;
+  for (int jd = threadIdx.x; jd < ns * D; jd += blockDim.x) {
+    const int j = jd / D, d = jd - j * D;
+    out[static_cast<int64_t>(s0 + j) * D + d] =
+        run_sum(tv, D, d, start[j], end[j]);
+  }
 }
 
 int grid_for(int64_t n) {
@@ -159,18 +187,17 @@ int launch_csr(const T* vals, const int* offsets, T* out, int S, int D,
 }
 
 template <typename T>
-int launch_blocked(const T* vals, const int* ids, const int* blk, T* partial,
-                   T* out, int G, int S, int chunk, int sb, int band, int D,
-                   cudaStream_t s) {
-  int64_t n = static_cast<int64_t>(S) * D;
-  if (n == 0 || G == 0) return 0;
-  size_t smem = static_cast<size_t>(chunk) * sizeof(int);
-  blocked_partial<T><<<G, THREADS, smem, s>>>(vals, ids, blk, partial, chunk,
-                                               sb, band, D);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  blocked_combine<T><<<grid_for(n), THREADS, 0, s>>>(partial, ids, blk, out,
-                                                     G, S, chunk, sb, band, D);
+int launch_blocked(const T* vals, const int* ids, T* out, int G, int S,
+                   int chunk, int sb, int D, cudaStream_t s) {
+  if (static_cast<int64_t>(S) * D == 0) return 0;
+  if (G == 0) return static_cast<int>(cudaErrorInvalidValue);
+  // segments per thread block: one thread per output element of the tile
+  const int tile = max(1, min(sb, THREADS / D));
+  const int64_t blocks = static_cast<int64_t>((S + sb - 1) / sb) *
+                         ((sb + tile - 1) / tile);
+  const size_t smem = 2 * static_cast<size_t>(tile) * sizeof(int);
+  blocked_sum<T><<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
+      vals, ids, out, G, S, chunk, sb, tile, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,18 +218,18 @@ int xm_segsum_f64(const double* vals, const int* offsets, double* out, int S,
                             static_cast<cudaStream_t>(stream));
 }
 
-int xm_segsum_blocked_f32(const float* vals, const int* ids, const int* blk,
-                          float* partial, float* out, int G, int S, int chunk,
-                          int sb, int band, int D, void* stream) {
-  return launch_blocked<float>(vals, ids, blk, partial, out, G, S, chunk, sb,
-                               band, D, static_cast<cudaStream_t>(stream));
+int xm_segsum_blocked_f32(const float* vals, const int* ids, float* out,
+                          int G, int S, int chunk, int sb, int D,
+                          void* stream) {
+  return launch_blocked<float>(vals, ids, out, G, S, chunk, sb, D,
+                               static_cast<cudaStream_t>(stream));
 }
 
-int xm_segsum_blocked_f64(const double* vals, const int* ids, const int* blk,
-                          double* partial, double* out, int G, int S,
-                          int chunk, int sb, int band, int D, void* stream) {
-  return launch_blocked<double>(vals, ids, blk, partial, out, G, S, chunk, sb,
-                                band, D, static_cast<cudaStream_t>(stream));
+int xm_segsum_blocked_f64(const double* vals, const int* ids, double* out,
+                          int G, int S, int chunk, int sb, int D,
+                          void* stream) {
+  return launch_blocked<double>(vals, ids, out, G, S, chunk, sb, D,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -51,6 +51,14 @@ MAX_RANK = 32
 # inner iterations enqueued between two reads of the done flag; the kernels
 # return at once once the carry is done, so the result does not depend on it
 FLAG_EVERY = 4
+# tcg_step launch geometry (see step_geometry): cameras a block takes before
+# the launch grows by a block, and the most blocks of one launch (a cluster)
+CAMS_PER_BLOCK = 128
+MAX_CLUSTER = 16
+# how the blocks of one launch exchange their partial sums: "cluster"
+# (distributed shared memory) or "grid" (a cooperative launch)
+SYNC = "cluster"
+MAX_GRID = 264
 
 
 # ---------------------------------------------------------------- layout --
@@ -189,6 +197,31 @@ def tcg_step_plain(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
                           dtype=torch.float32, device=sc.device))
 
 
+# ------------------------------------------------------------ geometry --
+
+def max_threads(o: int) -> int:
+    """Most threads of one ``tcg_step`` block at rank ``o``: the kernel's
+    ``__launch_bounds__`` for its ``MAXO`` instantiation (4, 8 -> 512;
+    16, 32 -> 256), so that a thread's rows stay in registers."""
+    return 512 if o <= 8 else 256
+
+
+def step_geometry(n: int, o: int) -> "tuple[int, int]":
+    """``(blocks, threads)`` of one ``tcg_step`` launch at ``n`` cameras:
+    a block per ``CAMS_PER_BLOCK`` cameras, up to one cluster of
+    ``MAX_CLUSTER`` blocks, and the fewest threads (a multiple of 32, at
+    most :func:`max_threads`) that give every camera a thread; past that a
+    thread takes every ``blocks * threads``-th camera.  Up to
+    ``CAMS_PER_BLOCK`` cameras the launch is one block, whose reductions
+    need no cross-block barrier."""
+    if SYNC == "grid":
+        blocks = min(MAX_GRID, -(-n // CAMS_PER_BLOCK))
+    else:
+        blocks = min(MAX_CLUSTER, -(-n // CAMS_PER_BLOCK))
+    threads = min(max_threads(o), 32 * -(-n // (32 * blocks)))
+    return blocks, threads
+
+
 # ------------------------------------------------------------ wrappers --
 
 _P = ctypes.c_void_p
@@ -200,7 +233,7 @@ def _lib():
 
     lib = _build.load("fused_tcg")
     if not getattr(lib, "_xm_typed", False):
-        lib.xm_tcg_step.argtypes = [_P] * 21 + [_I, _I, _I, _P]
+        lib.xm_tcg_step.argtypes = [_P] * 22 + [_I] * 6 + [_P]
         lib.xm_tcg_step.restype = _I
         lib.xm_tcg_cw_dense.argtypes = [_P] * 7 + [_I, _I, _I, _P]
         lib.xm_tcg_cw_dense.restype = _I
@@ -257,8 +290,14 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
              "hvR", "hvs", "sc", "cfg")
     ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(names, args, shapes)]
     ptrs.append(_check("work", work, ((6 * o + 1), n), dev))
+    blocks, threads = step_geometry(n, o)
+    grid = SYNC == "grid"
+    gpart = torch.empty((6 * blocks,), dtype=torch.float32, device=dev) \
+        if grid else None
+    ptrs.append(None if gpart is None else gpart.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), stream)
+    rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
+                            int(grid), stream)
     _raise_on(rc, "tcg_step")
     tcg_step.launches += 1
 

@@ -143,7 +143,7 @@ def _lib():
             fn.restype = _I
         for name in ("xm_segsum_blocked_f32", "xm_segsum_blocked_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+            fn.argtypes = [_P] * 3 + [_I] * 5 + [_P]
             fn.restype = _I
         lib._xm_typed = True
     return lib
@@ -217,17 +217,13 @@ def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError(f"sorted_segment_sum_blocked: band {band} outside "
                          f"1..{seg_block}")
     D = vals.shape[1]
-    blk_t = torch.as_tensor(np.asarray(blk), dtype=torch.int32, device=dev)
-    partial = torch.empty((G, band, D), dtype=vals.dtype, device=dev)
     out = torch.empty((num_segments, D), dtype=vals.dtype, device=dev)
     ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
             _check("seg_ids", seg_ids, (E,), dev, torch.int32),
-            _check("blk", blk_t, (G,), dev, torch.int32),
-            _check("partial", partial, (G, band, D), dev, vals.dtype),
             _check("out", out, (num_segments, D), dev, vals.dtype)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), f"xm_segsum_blocked_{sfx}")(
-        *ptrs, G, num_segments, chunk, seg_block, band, D, stream)
+        *ptrs, G, num_segments, chunk, seg_block, D, stream)
     _raise_on(rc, "sorted_segment_sum_blocked")
     sorted_segment_sum_blocked.launches += 1
     return out
