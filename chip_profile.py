@@ -188,14 +188,6 @@ def kernel_times(dev) -> dict:
                 rec["sweep"][f"{blocks}x{threads}"] = cs.time_step(
                     const, state, sc, cfgsc, max_inner)
             ft.step_geometry = geometry
-            if hasattr(ft, "SYNC"):
-                # the cooperative-grid alternative, at a few block sizes
-                ft.SYNC, cams = "grid", ft.CAMS_PER_BLOCK
-                for ft.CAMS_PER_BLOCK in (64, 128, 256):
-                    b, t = geometry(n, 3)
-                    rec["sweep"][f"grid {b}x{t}"] = cs.time_step(
-                        const, state, sc, cfgsc, max_inner)
-                ft.SYNC, ft.CAMS_PER_BLOCK = "cluster", cams
         out["step"][name] = rec
         if name == "C":
             # inner iterations of the f32 phase's first outer iterations

@@ -8,8 +8,10 @@ Phases (any failure exits non-zero; no phase is caught):
 1. build the CUDA kernels from ``xmtpu_torch/csrc`` (nvcc, all at once);
 2. hold each kernel against its plain PyTorch version on the card, on real
    f32-phase inputs (the first outer iteration of a stage, and one later in
-   the phase where the Steihaug loop runs long): one inner iteration and a
-   whole Steihaug loop, and time both versions beside the kernel's bound;
+   the phase where the Steihaug loop runs long): one inner iteration, two
+   launches of it on the same inputs that must give the same bits, and a
+   whole Steihaug loop; time both versions beside the kernel's bound and
+   print ``tcg_step``'s launch geometry (``fused_tcg.step_geometry``);
 3. scene A (n=120, the saddle-escape anchor): dense assembly on the card and
    the mixed certified staircase, which must certify at rank 4 through the
    dense kernel variant and match the port's own CPU run;
@@ -20,7 +22,9 @@ Phases (any failure exits non-zero; no phase is caught):
    plain twin on its real orderings (landmark and frame, D in {3, 6, 9, 18},
    f32 and f64, the blocked one on ``schedule_edges``' layout of the landmark
    ordering), two launches must give the same bits, and each is timed beside
-   its bound and ``index_add_``;
+   its bound and ``index_add_``; then ``tcg_step`` is held as in phase 2 at
+   n=6144 (the split variant on the f32 cast of ``Q_C``, the f64 loop on
+   ``Q_C``), at the phase's first outer iteration and at ``LONG_C``;
 6. scene B through ``SchurQ`` (the mixed ladder on the two-float operator,
    the matvec certificate): certified at rank 3 within 5e-3 of the
    reference's primal; before it, the same operator built on the host and
@@ -29,7 +33,8 @@ Phases (any failure exits non-zero; no phase is caught):
 7. scene C through ``xm2._solve_recover`` at xm2's defaults: certified at
    rank 3 within 5e-3 of the reference's primal, recovered rotations no
    worse than 1.5x the reference's errors, segment-sum and tcg_step
-   launches > 0;
+   launches > 0; then a second, traced solve gives ``tcg_step``'s mean
+   device time inside the solve (``solve_ms``);
 8. ``xm2_solve(implicit=True)`` on scene B: its phases, and rotation errors
    no worse than 1.5x the reference's;
 9. print the kernels' JSON line, the card's name and power limit, and the
@@ -39,9 +44,11 @@ A kernel's ``ms`` is its time on the card per launch (profiler durations);
 ``enqueue_ms`` is the rate at which back-to-back calls of its Python wrapper
 complete (CUDA events), which the host bounds at these sizes; ``plain_ms``
 is the plain version's time per call by CUDA events, its host syncs
-included; ``library_ms`` is the card's time for ``torch.matmul`` on the
-same W (fused tCG) or for one ``index_add_`` on the same tensors (segment
-sums, whose plain twin is ``zeros`` + ``index_add_``).  Each kernel's
+included; ``bound_ms`` is the larger of the bytes it must move over the
+HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
+card's time for ``torch.matmul`` on the same W (fused tCG) or for one
+``index_add_`` on the same tensors (segment sums, whose plain twin is
+``zeros`` + ``index_add_``).  Each kernel's
 ``launches`` sums its counter over the main-path runs of phases 3, 4, 6, 7
 and 8, each read just after its run with the counters set to 0 just
 before.

@@ -353,14 +353,15 @@ BLOCKED_CASES = [(30000, 100000, 512, 2048, "random"),
                  (20000, 3000, 128, 512, "long_run")]
 
 
-def _block_lower_bound(key_at, lo, hi, key, nt):
-    """numpy mirror of ``block_lower_bound`` in ``csrc/segsum.cu``: rounds
-    of ``nt`` evenly spaced probes, each counting the probes below ``key``."""
+def _block_lower_bound(key_at, n, key, nt, P=4):
+    """numpy mirror of ``block_lower_bound`` in ``csrc/segsum.cu``: the
+    first index in [0, n) whose key is >= ``key``, by rounds of ``P * nt``
+    evenly spaced probes, each counting the probes below ``key``."""
+    lo, hi = 0, n
     while hi > lo:
-        step = -(-(hi - lo) // nt)
-        p = lo + np.arange(nt) * step
-        live = p < hi
-        c = int((key_at(p[live]) < key).sum())
+        step = -(-(hi - lo) // (P * nt))
+        p = lo + np.arange(P * nt) * step
+        c = int((key_at(p[p < hi]) < key).sum())
         if c == 0:
             hi = lo
         else:
@@ -370,34 +371,37 @@ def _block_lower_bound(key_at, lo, hi, key, nt):
 
 def _blocked_runs(ids, S, chunk, sb, tile, nt):
     """The rows ``blocked_sum`` in ``csrc/segsum.cu`` sums for each segment,
-    found as it finds them: the block's visits by their first ids, its real
-    rows up to the first drop of its last visit, the tile's rows by the
-    probe search, each segment's run where the ids change.  ``(S, 2)``
-    [start, end), empty runs as [0, 0)."""
+    found as it finds them: for each bound of a tile, the first visit whose
+    first id reaches it, then the rows below it in the visit before (up to
+    that visit's first drop) when that visit is in the tile's block; each
+    segment's run where the ids change.  ``(S, 2)`` [start, end), empty runs
+    as [0, 0)."""
     G = len(ids) // chunk
     runs = np.zeros((S, 2), np.int64)
     tiles = -(-sb // tile)
-    for b in range(-(-S // sb)):
-        v0, v1 = (_block_lower_bound(lambda g: ids[g * chunk] // sb, 0, G, k,
-                                     nt) for k in (b, b + 1))
-        if v1 <= v0:
+    for blk in range(-(-S // sb) * tiles):
+        b, t = divmod(blk, tiles)
+        s0 = b * sb + t * tile
+        s1 = min(s0 + tile, (b + 1) * sb, S)
+        if s0 >= s1:
             continue
-        last = ids[(v1 - 1) * chunk:v1 * chunk]
-        drop = np.flatnonzero(last[1:] < last[:-1])
-        eb = (v1 - 1) * chunk + (1 + drop[0] if len(drop) else chunk)
-        for t in range(tiles):
-            s0 = b * sb + t * tile
-            s1 = min(s0 + tile, (b + 1) * sb, S)
-            if s0 >= s1:
-                continue
-            r0, r1 = (_block_lower_bound(lambda q: ids[q], v0 * chunk, eb, k,
-                                         nt) for k in (s0, s1))
-            q = np.arange(r0, r1)
-            head = (q == r0) | (ids[np.maximum(q - 1, 0)] != ids[q])
-            tail = (q == r1 - 1) | (ids[np.minimum(q + 1, len(ids) - 1)]
-                                    != ids[q])
-            runs[ids[q[head]], 0] = q[head]
-            runs[ids[q[tail]], 1] = q[tail] + 1
+        r = []
+        for key in (s0, s1):
+            g = _block_lower_bound(lambda v: ids[v * chunk], G, key, nt)
+            vis = ids[(g - 1) * chunk:g * chunk]
+            if g > 0 and vis[0] // sb == b:
+                drop = np.flatnonzero(vis[1:] < vis[:-1])
+                d = 1 + drop[0] if len(drop) else chunk
+                r.append((g - 1) * chunk + int((vis[:d] < key).sum()))
+            else:
+                r.append(g * chunk)
+        r0, r1 = r
+        q = np.arange(r0, r1)
+        head = (q == r0) | (ids[np.maximum(q - 1, 0)] != ids[q])
+        tail = (q == r1 - 1) | (ids[np.minimum(q + 1, len(ids) - 1)]
+                                != ids[q])
+        runs[ids[q[head]], 0] = q[head]
+        runs[ids[q[tail]], 1] = q[tail] + 1
     return runs
 
 
@@ -405,7 +409,7 @@ def _blocked_runs(ids, S, chunk, sb, tile, nt):
 @pytest.mark.parametrize("E,S,chunk,sb,layout", BLOCKED_CASES)
 def test_blocked_run_search_matches_brute_force(E, S, chunk, sb, layout, nt):
     """The blocked kernel's run search (mirrored in numpy; ``nt=5`` forces
-    several probe rounds) on ``schedule_edges`` output: every segment's run
+    several probe rounds over the visits) on ``schedule_edges`` output: every segment's run
     holds only its own id, holds every real row of that id, and the runs
     sum the values to the brute-force segment sums."""
     ids = _layout_ids(layout, E, S, sb, seed=E)

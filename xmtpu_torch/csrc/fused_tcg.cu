@@ -7,19 +7,31 @@
 //   Grams, pHp / alpha / the boundary root tau, the small / negative-curvature
 //   / boundary / superlinear tests, six axpys, the projected block-Jacobi
 //   preconditioner solve, rdotr / rdotz / beta and the end-reason flags.
-//   Bound on the H100: bytes.  It reads ~11 (3o, n) f32 arrays and writes 4,
-//   a few hundred KB at n=1934; its arithmetic is a few hundred flops per
-//   camera.  At these sizes the real limit is latency: three dependent
-//   block-wide reductions (pHp, then rdotr/rdotz) separate the phases.
-//   Design: ONE thread block.  Each thread owns a fixed strided set of
-//   cameras for all three phases, so per-camera intermediates (rh, z) go
-//   through a thread-private scratch buffer with no cross-thread hazard, the
-//   camera-lane-major (3o, n) layout keeps every load coalesced, and the only
-//   synchronisation is the reductions, each done in a fixed order (warp
-//   shuffles, then shared memory) so a run is bitwise deterministic.  The
-//   scalar carry lives in device memory; the kernel returns at once when the
-//   carry says done or i >= max_inner, so the host may enqueue several
-//   iterations between reads of the flag and get the same result.
+//   Bound on the H100: bytes by count — ~11 (3o, n) f32 arrays read and 4
+//   written, 3.2 MB at n=6144, o=3 (0.95 us at 3.35 TB/s) against a few
+//   hundred flops a camera — but in practice latency: three phases of
+//   dependent loads separated by two reductions over every camera (pHp, then
+//   rdotr / rdotz), whose results every camera's next phase needs.
+//   Design: one launch per iteration, spread over a thread-block cluster of
+//   up to 16 blocks on neighbouring SMs (the geometry comes from
+//   ops/fused_tcg.py step_geometry: one block up to 128 cameras).  A single
+//   block moved the whole ~5 MB working set through one SM (0.073 ms at
+//   n=6144); the cluster moves it through 16.  Each thread owns the same
+//   strided cameras in all three phases, so per-camera intermediates (rh, z)
+//   go through a thread-private scratch buffer with no cross-thread hazard,
+//   and the camera-lane-major (3o, n) layout keeps every load coalesced.
+//   Each reduction is a fixed-order block sum (warp shuffles, then shared
+//   memory), then cluster.sync() and every block reading all the blocks'
+//   partials through distributed shared memory and adding them in block
+//   order: every block holds the same bits, with no atomics and no global
+//   scratch, so the Steihaug scalars agree across blocks and two launches
+//   give the same bits.  The scalar carry lives in device memory: every
+//   block reads it before the first barrier and one thread writes it after
+//   the last, and every block returns at once when it says done or
+//   i >= max_inner, so the host may enqueue several iterations between
+//   reads of the flag and get the same result.  A cooperative grid over
+//   more SMs (partials through global memory, grid.sync()) measured no
+//   faster at n=6144 and slower at n=1934, and needs global scratch.
 //
 // tcg_cw_dense replaces the in-kernel GEMM of
 // xmtpu/ops/pallas_tcg.py::_tcg_kernel_dense (its lines building W and
@@ -68,7 +80,6 @@ struct StepArgs {
   float* sc;            // (8,) scalar carry, updated in place
   const float* cfg;     // (4,) lam, delta, gradnorm, rdotr_min
   float* work;          // ((2*3o + 1), n) thread-private scratch
-  float* gpart;         // (6 * blocks,) block partials (cooperative grid)
   int n;
   int o;
   int max_inner;
@@ -159,41 +170,30 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* smem) {
 }
 
 // Threads a tcg_step block may have: the cap __launch_bounds__ gives the
-// compiler, so that a thread's per-camera rows stay in registers (at most
-// 128 registers a thread for MAXO <= 8, 255 above).
+// compiler: at most 128 registers a thread for MAXO <= 8, 255 above (ptxas
+// keeps MAXO = 4 within them; 8, 16 and 32 spill a little, more, most).
 template <int MAXO>
 struct StepCap {
   static constexpr int threads = MAXO <= 8 ? 512 : 256;
 };
-constexpr int MAX_CLUSTER = 16;   // blocks of one tcg_step launch
-constexpr int MAX_GRID = 264;     // blocks of one cooperative launch
+constexpr int MAX_CLUSTER = 16;  // blocks of one tcg_step launch
 
 // After block_sum: v holds this block's partials (the same in every thread).
-// On return v holds the sums over every block of the launch, added in block
-// order, so every block holds the same bits.  GRID: the partials go through
-// the global scratch gpart and a grid-wide barrier; otherwise the blocks are
-// one cluster and read each other's partials through distributed shared
-// memory.  mine: this reduction's own slot in shared memory (NV floats);
-// allp: every block's partials (blocks * NV floats).
-template <int NV, bool GRID>
-__device__ __forceinline__ void cross_sum(float (&v)[NV], float* mine,
-                                          float* allp, float* gpart) {
+// On return v holds the sums over every block of the cluster, added in
+// block order from the blocks' shared memory (distributed shared memory),
+// so every block holds the same bits.  mine: this reduction's own slot
+// (NV floats); allp: every block's partials (blocks * NV floats).
+template <int NV>
+__device__ __forceinline__ void cluster_sum(float (&v)[NV], float* mine,
+                                            float* allp) {
+  cg::cluster_group cluster = cg::this_cluster();
   const int nb = gridDim.x, m = nb * NV;
-  if constexpr (GRID) {
-    if (threadIdx.x == 0)
+  if (threadIdx.x == 0)
 #pragma unroll
-      for (int q = 0; q < NV; ++q) gpart[blockIdx.x * NV + q] = v[q];
-    cg::this_grid().sync();
-    for (int t = threadIdx.x; t < m; t += blockDim.x) allp[t] = __ldcg(gpart + t);
-  } else {
-    if (threadIdx.x == 0)
-#pragma unroll
-      for (int q = 0; q < NV; ++q) mine[q] = v[q];
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    for (int t = threadIdx.x; t < m; t += blockDim.x)
-      allp[t] = *cluster.map_shared_rank(mine + t % NV, t / NV);
-  }
+    for (int q = 0; q < NV; ++q) mine[q] = v[q];
+  cluster.sync();
+  for (int t = threadIdx.x; t < m; t += blockDim.x)
+    allp[t] = *cluster.map_shared_rank(mine + t % NV, t / NV);
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
@@ -204,12 +204,12 @@ __device__ __forceinline__ void cross_sum(float (&v)[NV], float* mine,
   __syncthreads();  // allp is reused by the next reduction
 }
 
-template <int MAXO, bool GRID>
+template <int MAXO>
 __global__ void __launch_bounds__(StepCap<MAXO>::threads)
     tcg_step_kernel(StepArgs a) {
   __shared__ float red[4 * 32];
-  __shared__ float mine[2][4];
-  __shared__ float allp[4 * (GRID ? MAX_GRID : MAX_CLUSTER)];
+  __shared__ float mine[2][4];  // this block's partials, one slot a reduction
+  __shared__ float allp[4 * MAX_CLUSTER];
   const float* sc = a.sc;
   // uniform across the launch: sc is written only after the last barrier
   if (carry_stopped(sc, a.max_inner)) return;
@@ -271,7 +271,7 @@ __global__ void __launch_bounds__(StepCap<MAXO>::threads)
     rhs_w[i] = rhs;
   }
   block_sum<2>(part, red);
-  if (split) cross_sum<2, GRID>(part, mine[0], allp, a.gpart);
+  if (split) cluster_sum<2>(part, mine[0], allp);
   const float pHp = part[0] + part[1];
 
   // ---- Steihaug scalars (identical in every thread of every block) -------
@@ -339,7 +339,7 @@ __global__ void __launch_bounds__(StepCap<MAXO>::threads)
     store_rows<MAXO>(z_w, n, o, i, Z);
   }
   block_sum<4>(sums, red);
-  if (split) cross_sum<4, GRID>(sums, mine[1], allp, a.gpart + 2 * gridDim.x);
+  if (split) cluster_sum<4>(sums, mine[1], allp);
   const float rdotr_new = sums[0] + sums[1];
   const float rdotz_new = sums[2] + sums[3];
   const bool superlin =
@@ -373,10 +373,8 @@ __global__ void __launch_bounds__(StepCap<MAXO>::threads)
     s[S_DONE] = (small || to_edge || superlin) ? 1.f : 0.f;
     s[S_I] = s_i + 1.f;
   }
-  // no block of a cluster leaves while another may still read its mine[1]
-  if constexpr (!GRID) {
-    if (split) cg::this_cluster().sync();
-  }
+  // no block of the cluster leaves while another may still read its mine[1]
+  if (split) cg::this_cluster().sync();
 }
 
 constexpr int kCwThreads = 256;
@@ -426,31 +424,22 @@ __global__ void __launch_bounds__(kCwThreads)
 }
 
 // One tcg_step launch of `blocks` blocks of `threads` threads (the geometry
-// of ops/fused_tcg.py step_geometry).  One block: a plain launch.  Several:
-// one thread-block cluster (grid == 0) or a cooperative grid (grid != 0).
-// A geometry the card cannot schedule returns cudaErrorLaunchOutOfResources.
+// of ops/fused_tcg.py step_geometry): one block, a plain launch; several,
+// one thread-block cluster.  A cluster the card cannot schedule returns
+// cudaErrorLaunchOutOfResources.
 template <int MAXO>
-int launch_step(const StepArgs& a, int blocks, int threads, int grid,
+int launch_step(const StepArgs& a, int blocks, int threads,
                 cudaStream_t stream) {
+  auto kern = tcg_step_kernel<MAXO>;
   if (threads < 32 || threads % 32 != 0 || threads > StepCap<MAXO>::threads ||
-      blocks < 1 || blocks > (grid ? MAX_GRID : MAX_CLUSTER))
+      blocks < 1 || blocks > MAX_CLUSTER)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (blocks == 1) {
-    tcg_step_kernel<MAXO, false><<<1, threads, 0, stream>>>(a);
+    kern<<<1, threads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (grid) {
-    auto kern = tcg_step_kernel<MAXO, true>;
-    StepArgs args = a;
-    void* params[] = {&args};
-    cudaError_t err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(kern), dim3(blocks), dim3(threads), params, 0,
-        stream);
-    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-  }
-  auto kern = tcg_step_kernel<MAXO, false>;
-  // per instantiation: the non-portable size (above 8) is allowed once, and
-  // each (blocks, threads) is checked against the card once
+  // per instantiation: the non-portable sizes (above 8) are allowed once,
+  // and each (blocks, threads) is checked against the card once
   static bool nonportable = false;
   static signed char fits[MAX_CLUSTER + 1][StepCap<MAXO>::threads / 32 + 1];
   if (!nonportable) {
@@ -510,17 +499,16 @@ int xm_tcg_step(const float* Rt, const float* s_ex, const float* sfree,
                 const float* CsRt, const float* minvRt, const float* inv_ms,
                 const float* CWt, float* vR, float* vs, float* rR, float* rs,
                 float* pR, float* ps, float* hvR, float* hvs, float* sc,
-                const float* cfg, float* work, float* gpart, int n, int o,
-                int max_inner, int blocks, int threads, int grid,
-                void* stream) {
+                const float* cfg, float* work, int n, int o, int max_inner,
+                int blocks, int threads, void* stream) {
   StepArgs a{Rt, s_ex, sfree, inv_s2, egs, Segrt, CsRt, minvRt, inv_ms, CWt,
-             vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, work, gpart, n, o,
+             vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, work, n, o,
              max_inner};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (o <= 4) return launch_step<4>(a, blocks, threads, grid, s);
-  if (o <= 8) return launch_step<8>(a, blocks, threads, grid, s);
-  if (o <= 16) return launch_step<16>(a, blocks, threads, grid, s);
-  if (o <= 32) return launch_step<32>(a, blocks, threads, grid, s);
+  if (o <= 4) return launch_step<4>(a, blocks, threads, s);
+  if (o <= 8) return launch_step<8>(a, blocks, threads, s);
+  if (o <= 16) return launch_step<16>(a, blocks, threads, s);
+  if (o <= 32) return launch_step<32>(a, blocks, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

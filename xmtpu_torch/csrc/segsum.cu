@@ -20,21 +20,31 @@
 //   own neighbouring columns of one segment, then the next segment's, so a
 //   warp's loads fall on neighbouring rows of the row-major array.
 //
-// blocked_partial + blocked_combine replace
-// xmtpu/ops/pallas_segsum.py::_kernel_blocked (via
+// blocked_sum replaces xmtpu/ops/pallas_segsum.py::_kernel_blocked (via
 // sorted_segment_sum_blocked): the same sum on the scheduled layout of
 // plan_blocks / schedule_edges — G visits of `chunk` rows, each inside one
-// output block of `sb` segments, zero-valued padding rows carrying the
-// block's first id at the tail of a block's last visit, and an empty visit
-// for every edge-less block.  The TPU kernel accumulated each visit's band
-// partial into the resident output block in grid order.  Here
-//   pass 1 (one thread block per visit) sums each (window segment, column)
-//     of the visit into partial (G, band, D), with the TPU kernel's window
-//     clamp; padding rows sit after the visit's sorted prefix and are left
-//     out (they hold exact zeros);
-//   pass 2 (one thread per output element) adds the partials of its block's
-//     visits in visit order: the TPU kernel's accumulation order, with no
-//     atomics across visits.
+// output block of `sb` segments; within a block the real rows are the
+// block's span of the sorted ids, re-chunked in order, then zero-valued
+// padding rows carrying the block's first id at the tail of its last visit;
+// an edge-less block gets one all-padding visit.  The TPU kernel added each
+// visit's band partial into the resident output block in grid order.
+//   Bound on the H100: bytes, as for segsum_csr (values and scheduled ids in
+//   once, the (S, D) output out once: 2.5 us at D=6 f32 on scene C's
+//   landmark schedule) — in practice the latency of finding each segment's
+//   rows.  The first port wrote (G, band, D) per-visit partials and had
+//   every output thread walk its block's visits (~44 at scene C), and lost
+//   to one index_add_.
+//   Design: one pass, no partial array.  One thread block per (output block,
+//   tile of THREADS / D segments) finds the rows of its tile's two bounds
+//   with one probe round over the visits' first ids (non-decreasing: a
+//   visit starts with a real id, or an empty visit with its block's first
+//   id) and one scan of the visit before, counted up to that visit's first
+//   drop of the ids (where the padding starts); it then marks each
+//   segment's run where the ids change and gives each output element one
+//   thread that sums its run in row order: no atomics on values, the same
+//   bits every run, the padding left out (or, where it equals every real id
+//   of its block, added as +0.0).  Staging a tile's rows in shared memory
+//   first measured slower (34 KB a block cuts the blocks an SM holds).
 //
 // Both are instantiated for float and double, each accumulating in its own
 // type (the TPU kernel ran f32 at HIGHEST precision and f64 exactly).
@@ -68,38 +78,48 @@ segsum_csr(const T* __restrict__ vals, const int* __restrict__ offsets,
 }
 
 // Cooperative search by the whole thread block, for K keys at once: the
-// first index r in [lo, hi) with key_at(r) >= keys[k] (hi if none), where
-// key_at is non-decreasing on [lo, hi).  Each round probes blockDim.x evenly
-// spaced indices and counts the probes below the key, which shrinks the
-// interval blockDim.x-fold: two rounds up to blockDim.x^2 indices.  Every
-// thread gets the same answers; every thread must call it.
-template <int K, typename KeyAt>
-__device__ __forceinline__ void block_lower_bound(KeyAt key_at, int64_t lo,
-                                                  int64_t hi,
+// first index r in [0, n) with key_at(r) >= keys[k] (n if none), where
+// key_at is non-decreasing.  Each round probes P * blockDim.x evenly spaced
+// indices, all loads of the round issued together, and counts those below
+// each key with barrier counts, which shrinks the interval that many-fold:
+// one round up to P * blockDim.x indices.  Every thread gets the same
+// answers; every thread must call it.
+template <int K, int P, typename KeyAt>
+__device__ __forceinline__ void block_lower_bound(KeyAt key_at, int64_t n,
                                                   const int (&keys)[K],
                                                   int64_t (&res)[K]) {
   int64_t l[K], h[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) l[k] = lo, h[k] = hi;
-  const int nt = blockDim.x;
+  for (int k = 0; k < K; ++k) l[k] = 0, h[k] = n;
+  const int64_t np = static_cast<int64_t>(P) * blockDim.x;
   while (true) {
     bool open = false;
 #pragma unroll
     for (int k = 0; k < K; ++k) open = open || h[k] > l[k];
     if (!open) break;  // uniform: every thread holds the same l, h
+    int64_t step[K];
+    bool below[K][P];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int64_t span = h[k] - l[k];
-      const int64_t step = (span + nt - 1) / nt;
-      const int64_t p = l[k] + threadIdx.x * step;
-      const int c = __syncthreads_count(span > 0 && p < h[k] &&
-                                        key_at(p) < keys[k]);
-      if (span > 0) {
+      step[k] = (h[k] - l[k] + np - 1) / np;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int64_t q = l[k] + (p * static_cast<int64_t>(blockDim.x) +
+                                  threadIdx.x) * step[k];
+        below[k][p] = q < h[k] && key_at(q) < keys[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      int c = 0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) c += __syncthreads_count(below[k][p]);
+      if (h[k] > l[k]) {
         if (c == 0) {
           h[k] = l[k];
         } else {
-          const int64_t nl = l[k] + (c - 1) * step + 1;
-          h[k] = min(l[k] + c * step, h[k]);
+          const int64_t nl = l[k] + (c - 1) * step[k] + 1;
+          h[k] = min(l[k] + c * step[k], h[k]);
           l[k] = nl;
         }
       }
@@ -111,24 +131,25 @@ __device__ __forceinline__ void block_lower_bound(KeyAt key_at, int64_t lo,
 
 // One thread block per (output block b, tile of `tile` segments): every
 // output element of the tile in one pass, no partial array.
-//   1. b's visits [v0, v1): a visit's first row holds a real id of its
-//      block, or, in an empty visit, the block's first id, so
-//      ids[g * chunk] / sb is non-decreasing in g;
-//   2. b's real rows [B0, Eb): the block's span is sorted, and its padding
-//      (the block's first id, zero values) sits at the tail of its last
-//      visit, so Eb is the first drop of the ids in that visit (none: the
-//      padding equals every real id, and adding its zeros changes no sum);
-//   3. the tile's rows [r0, r1) by a cooperative search of [B0, Eb);
-//   4. each segment's run [start, end) marked in shared memory where the
-//      ids change (empty segments keep [0, 0));
-//   5. thread (j, d) sums column d of segment j's run in row order.
+//   1. for each bound s of the tile's segments [s0, s1), the first visit g
+//      whose first id is >= s: a visit's first row holds a real id, or, in
+//      an empty visit, its block's first id, so first ids never decrease;
+//   2. the bound's row: if visit c = g - 1 lies in block b, the rows of c
+//      below s, counted up to c's first drop of the ids (the start of the
+//      block's padding: zero values carrying the block's first id, at the
+//      tail of its last visit only); else visit g's first row;
+//   3. each segment's run [start, end) in the tile's rows [r0, r1), marked
+//      in shared memory where the ids change (empty segments keep [0, 0));
+//   4. thread (j, d) sums column d of segment j's run in row order.
+// A block whose padding equals every real id (all rows hold its first id)
+// has no drop: its padding joins that segment's run and adds +0.0.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 blocked_sum(const T* __restrict__ vals, const int* __restrict__ ids,
             T* __restrict__ out, int G, int S, int chunk, int sb, int tile,
             int D) {
   extern __shared__ int runs[];  // start[tile], end[tile]
-  __shared__ int eb;
+  __shared__ int drop[2], below[2];
   const int tiles = (sb + tile - 1) / tile;
   const int b = blockIdx.x / tiles;
   const int s0 = b * sb + (blockIdx.x - b * tiles) * tile;
@@ -138,38 +159,54 @@ blocked_sum(const T* __restrict__ vals, const int* __restrict__ ids,
   int* start = runs;
   int* end = runs + tile;
   for (int j = threadIdx.x; j < ns; j += blockDim.x) start[j] = end[j] = 0;
+  if (threadIdx.x < 2) drop[threadIdx.x] = chunk, below[threadIdx.x] = 0;
 
-  int64_t v[2];
-  block_lower_bound<2>(
-      [&](int64_t g) { return __ldg(ids + g * chunk) / sb; }, 0, G,
-      {b, b + 1}, v);
-  int64_t r[2] = {0, 0};
-  if (v[1] > v[0]) {
-    const int64_t B0 = v[0] * chunk, B1 = v[1] * chunk;
-    const int64_t L0 = B1 - chunk;
-    if (threadIdx.x == 0) eb = static_cast<int>(B1 - L0);
-    __syncthreads();
-    for (int64_t q = L0 + 1 + threadIdx.x; q < B1; q += blockDim.x)
-      if (__ldg(ids + q) < __ldg(ids + q - 1))
-        atomicMin(&eb, static_cast<int>(q - L0));  // an integer minimum
-    __syncthreads();
-    block_lower_bound<2>([&](int64_t q) { return __ldg(ids + q); }, B0,
-                         L0 + eb, {s0, s1}, r);
-  }
-  __syncthreads();  // start/end zeroed before they are marked
-  for (int64_t q = r[0] + threadIdx.x; q < r[1]; q += blockDim.x) {
-    const int id = __ldg(ids + q);
-    if (q == r[0] || __ldg(ids + q - 1) != id)
-      start[id - s0] = static_cast<int>(q - r[0]);
-    if (q + 1 == r[1] || __ldg(ids + q + 1) != id)
-      end[id - s0] = static_cast<int>(q + 1 - r[0]);
+  const int key[2] = {s0, s1};
+  int64_t g[2];
+  block_lower_bound<2, 4>(
+      [&](int64_t v) { return __ldg(ids + v * chunk); }, G, key, g);
+  bool in_b[2];
+  const int* vis[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    vis[k] = ids + (g[k] - 1) * chunk;
+    in_b[k] = g[k] > 0 && __ldg(vis[k]) / sb == b;  // uniform
+    if (in_b[k])
+      for (int q = threadIdx.x + 1; q < chunk; q += blockDim.x)
+        if (__ldg(vis[k] + q) < __ldg(vis[k] + q - 1))
+          atomicMin(&drop[k], q);  // an integer minimum
   }
   __syncthreads();
-  const T* tv = vals + r[0] * D;
+  int64_t r[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (in_b[k]) {
+      int cnt = 0;
+      for (int q = threadIdx.x; q < drop[k]; q += blockDim.x)
+        cnt += __ldg(vis[k] + q) < key[k];
+      if (cnt) atomicAdd(&below[k], cnt);  // an integer sum
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    r[k] = in_b[k] ? (g[k] - 1) * chunk + below[k] : g[k] * chunk;
+
+  const int rows = static_cast<int>(r[1] - r[0]);
+  const int* idp = ids + r[0];
+  const T* vp = vals + r[0] * D;
+  for (int q = threadIdx.x; q < rows; q += blockDim.x) {
+    const int id = idp[q];
+    if (q == 0 || idp[q - 1] != id) start[id - s0] = q;
+    if (q + 1 == rows || idp[q + 1] != id) end[id - s0] = q + 1;
+  }
+  __syncthreads();
   for (int jd = threadIdx.x; jd < ns * D; jd += blockDim.x) {
     const int j = jd / D, d = jd - j * D;
-    out[static_cast<int64_t>(s0 + j) * D + d] =
-        run_sum(tv, D, d, start[j], end[j]);
+    T acc = T(0);
+    for (int q = start[j]; q < end[j]; ++q)
+      acc = acc + vp[static_cast<int64_t>(q) * D + d];
+    out[static_cast<int64_t>(s0 + j) * D + d] = acc;
   }
 }
 

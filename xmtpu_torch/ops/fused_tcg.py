@@ -6,7 +6,9 @@ same function in this module:
 
 * ``tcg_step`` replaces ``pallas_tcg._tcg_kernel`` (body ``_tcg_body``): one
   whole preconditioned Steihaug-tCG inner iteration except the operator
-  product.
+  product, in one launch spread over a thread-block cluster whose geometry
+  :func:`step_geometry` gives (one block up to ``CAMS_PER_BLOCK`` cameras,
+  then a block per ``CAMS_PER_BLOCK`` cameras up to ``MAX_CLUSTER``).
 * ``tcg_cw_dense`` replaces the in-kernel GEMM of
   ``pallas_tcg._tcg_kernel_dense``: ``CW = 2 C W`` with
   ``W = pR .* s_ex + R .* ps`` on the row-major f32 ``C``.  The dense
@@ -55,10 +57,6 @@ FLAG_EVERY = 4
 # the launch grows by a block, and the most blocks of one launch (a cluster)
 CAMS_PER_BLOCK = 128
 MAX_CLUSTER = 16
-# how the blocks of one launch exchange their partial sums: "cluster"
-# (distributed shared memory) or "grid" (a cooperative launch)
-SYNC = "cluster"
-MAX_GRID = 264
 
 
 # ---------------------------------------------------------------- layout --
@@ -202,7 +200,7 @@ def tcg_step_plain(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
 def max_threads(o: int) -> int:
     """Most threads of one ``tcg_step`` block at rank ``o``: the kernel's
     ``__launch_bounds__`` for its ``MAXO`` instantiation (4, 8 -> 512;
-    16, 32 -> 256), so that a thread's rows stay in registers."""
+    16, 32 -> 256), which leaves a thread 128 or 255 registers."""
     return 512 if o <= 8 else 256
 
 
@@ -214,10 +212,7 @@ def step_geometry(n: int, o: int) -> "tuple[int, int]":
     thread takes every ``blocks * threads``-th camera.  Up to
     ``CAMS_PER_BLOCK`` cameras the launch is one block, whose reductions
     need no cross-block barrier."""
-    if SYNC == "grid":
-        blocks = min(MAX_GRID, -(-n // CAMS_PER_BLOCK))
-    else:
-        blocks = min(MAX_CLUSTER, -(-n // CAMS_PER_BLOCK))
+    blocks = min(MAX_CLUSTER, -(-n // CAMS_PER_BLOCK))
     threads = min(max_threads(o), 32 * -(-n // (32 * blocks)))
     return blocks, threads
 
@@ -233,7 +228,7 @@ def _lib():
 
     lib = _build.load("fused_tcg")
     if not getattr(lib, "_xm_typed", False):
-        lib.xm_tcg_step.argtypes = [_P] * 22 + [_I] * 6 + [_P]
+        lib.xm_tcg_step.argtypes = [_P] * 21 + [_I] * 5 + [_P]
         lib.xm_tcg_step.restype = _I
         lib.xm_tcg_cw_dense.argtypes = [_P] * 7 + [_I, _I, _I, _P]
         lib.xm_tcg_cw_dense.restype = _I
@@ -266,8 +261,10 @@ def _on_cpu(*ts) -> bool:
 def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
              CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, max_inner: int,
              work=None):
-    """One fused inner iteration (see :func:`tcg_step_plain`).  ``work`` is
-    optional ``((6o+1), n)`` f32 scratch for the kernel."""
+    """One fused inner iteration (see :func:`tcg_step_plain`), launched at
+    :func:`step_geometry` ``(n, o)``.  ``work`` is optional ``((6o+1), n)``
+    f32 scratch for the kernel.  A cluster the card cannot schedule
+    raises."""
     args = (Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
             CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg)
     if _on_cpu(*args):
@@ -291,13 +288,9 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
     ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(names, args, shapes)]
     ptrs.append(_check("work", work, ((6 * o + 1), n), dev))
     blocks, threads = step_geometry(n, o)
-    grid = SYNC == "grid"
-    gpart = torch.empty((6 * blocks,), dtype=torch.float32, device=dev) \
-        if grid else None
-    ptrs.append(None if gpart is None else gpart.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
-                            int(grid), stream)
+                            stream)
     _raise_on(rc, "tcg_step")
     tcg_step.launches += 1
 

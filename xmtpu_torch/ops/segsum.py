@@ -10,7 +10,9 @@ sums over edges kept sorted by segment.  Two kernels in
   segment's rows in row order (no float atomics, same bits every run).
 * ``sorted_segment_sum_blocked`` replaces ``pallas_segsum._kernel_blocked``:
   the same sum on the scheduled layout of :func:`plan_blocks` /
-  :func:`schedule_edges`, as per-visit partials added in visit order.
+  :func:`schedule_edges`, in one pass: each thread block finds its tile of
+  segments' rows from the visits' first ids and sums each run in row
+  order.
 
 The plain twin of both is ``torch.zeros(S, D).index_add_(0, ids, vals)``.
 Wrapper rule (as in ``ops/fused_tcg.py``): CPU tensors take the twin; CUDA
@@ -199,8 +201,11 @@ def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
     """Segment sum on the SCHEDULED layout of :func:`plan_blocks`
     (``vals``/``seg_ids`` of ``G*chunk`` rows; padding rows carry the
     block's first id and zero values).  ``blk``/``first`` are the
-    schedule's (G,) arrays; the CUDA kernel reads ``blk`` (each output
-    element starts from zero, so ``first`` is not needed)."""
+    schedule's (G,) arrays.  The CUDA kernel finds each block's visits from
+    the ids themselves (a visit's first id) and each output element starts
+    from zero, so it reads neither ``blk`` (beyond its length G) nor
+    ``first``; nor ``band``, which is checked and kept so callers port
+    unchanged."""
     G = len(blk)
     E = vals.shape[0]
     if E != G * chunk:
