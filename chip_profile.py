@@ -205,7 +205,6 @@ def kernel_times(dev) -> dict:
                     break
                 iters.append(int(st.total_inner - t0))
             out["C_f32_phase_inner_iters"] = iters
-        del q
     out["segsum"] = [dict(kernel=c["kernel"], tag=c["tag"], ms=c["ms"],
                           library_ms=c["library_ms"], bound_ms=c["bound"][0])
                      for c in cs.hold_segsum(Q_C, dev)]

@@ -30,8 +30,8 @@
 //   the last, and every block returns at once when it says done or
 //   i >= max_inner, so the host may enqueue several iterations between
 //   reads of the flag and get the same result.  A cooperative grid over
-//   more SMs (partials through global memory, grid.sync()) measured no
-//   faster at n=6144 and slower at n=1934, and needs global scratch.
+//   more SMs (partials through global memory, grid.sync()) measured 3-6 %
+//   faster at n=6144 but 7-23 % slower at n=1934, and needs global scratch.
 //
 // tcg_cw_dense replaces the in-kernel GEMM of
 // xmtpu/ops/pallas_tcg.py::_tcg_kernel_dense (its lines building W and
