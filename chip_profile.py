@@ -18,7 +18,9 @@ first, outside every timing.
 times the kernels alone instead (:func:`kernel_times`), once for the
 ``xmtpu_torch`` of each ROOT in the order given (default: this checkout),
 each in a process of its own, one JSON line each: an unpacked parent commit
-and this checkout, given as ``parent . . parent``, compare on one card.
+and this checkout, given as ``parent . . parent``, compare on one card
+(this checkout's ``chip_smoke.py`` times both; a tree without the
+one-launch dense kernel is timed through its two).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -130,13 +132,69 @@ def profile_c(dev):
         dict(build_s=t_build))
 
 
+def _dense_times(cs, ft, inp, reps=200):
+    """The dense variant's inner iteration on ``inp``: this tree's
+    ``tcg_step_dense`` (one launch) or, where it is absent, the parent's
+    ``tcg_cw_dense`` then ``tcg_step`` (found with ``hasattr``), timed as
+    one iteration; with ``torch.matmul`` on the same W and ``tcg_step``
+    alone as yardsticks."""
+    import torch
+
+    from xmtpu_torch.ops import manifold as mf
+
+    n, _, o = inp["R"].shape
+    max_inner = int(inp["cfg"].max_inner)
+    _, const, state, sc, cfgsc = cs.step_inputs(inp)
+    C32 = inp["qmul"].__self__.C.to(torch.float32).contiguous()
+    ck = {k: v.clone() for k, v in const.items()}
+    sk = [t.clone() for t in state]
+    sck = sc.clone()
+    reset = lambda: sck.copy_(sc)  # noqa: E731
+    rec = dict(n=n, bound_ms=cs.bound_ms(*cs.dense_bytes_ops(n, o))[0],
+               step_ms=cs.time_step(const, state, sc, cfgsc, max_inner,
+                                    reps))
+    Wf = mf.flatten(ft.from_t(sk[4] * ck["s_ex_t"] + ck["Rt"] * sk[5], n,
+                              o)).contiguous()
+    rec["matmul_ms"] = cs.device_ms(lambda: torch.matmul(C32, Wf), reps)
+    if hasattr(ft, "tcg_step_dense"):
+        rec["geometry"] = list(ft.dense_geometry(n, o))
+        rec["dense_ms"] = cs.time_step(const, state, sc, cfgsc, max_inner,
+                                       reps, C32=C32)
+    else:
+        cw = lambda: ft.tcg_cw_dense(  # noqa: E731
+            C32, ck["Rt"], ck["s_ex_t"], sk[4], sk[5], sck, ck["CWt"],
+            max_inner)
+        rec["cw_ms"] = cs.device_ms(cw, reps)
+
+        def pair():
+            cw()
+            ft.tcg_step(*ck.values(), *sk, sck, cfgsc, max_inner)
+        rec["pair_ms"] = cs.device_ms(pair, reps, setup=reset)
+    return rec
+
+
+def _csr_inputs(Q, dev, order, D, dt):
+    import torch
+
+    ids, off, S = ((Q.l_l, Q.bounds_l, Q.n_landmarks) if order == "l"
+                   else (Q.f_f, Q.bounds_f, Q.n_cameras))
+    gen = torch.Generator().manual_seed(D)
+    vals = torch.randn((ids.shape[0], D), generator=gen,
+                       dtype=torch.float64).to(dt).to(dev)
+    return vals, ids, off, S
+
+
 def kernel_times(dev) -> dict:
-    """``tcg_step`` at scenes A, B and C (n = 120, 1934, 6144; o = 3, the
-    first outer iteration of the f32 phase from identity frames, as
-    ``chip_smoke.py`` holds them) and the segment sums on scene C's
-    orderings, timed as ``chip_smoke.py`` times them, for the
-    ``xmtpu_torch`` first on ``sys.path``.  With ``fused_tcg.step_geometry``
-    present, ``tcg_step`` is also timed at other block counts."""
+    """For the ``xmtpu_torch`` first on ``sys.path``: ``tcg_step`` at scenes
+    A, B and C (n = 120, 1934, 6144; o = 3, the first outer iteration of
+    the f32 phase from identity frames, as ``chip_smoke.py`` holds them);
+    the dense variant's iteration at n = 120, 512 and 1934 (scene B's C,
+    above the gate) with ``torch.matmul`` and ``tcg_step`` beside it, and,
+    where ``fused_tcg.dense_geometry`` exists, at other geometries; the
+    segment sums on scene C's orderings as ``chip_smoke.py`` times them,
+    and, where ``segsum.csr_threads`` exists, an empty kernel of each CSR
+    case's grid and of a 256-thread grid (one thread an output), and the
+    CSR kernel at other block sizes and batches (1 or 16)."""
     import importlib.util
 
     import torch
@@ -144,11 +202,11 @@ def kernel_times(dev) -> dict:
     import xmtpu_torch
     from xmtpu_torch import _build
     from xmtpu_torch.ops import fused_tcg as ft
-    from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.ops import segsum as ss
     from xmtpu_torch.ops.qop import DenseQ, cast_qop
+    from xmtpu_torch.ops import manifold as mf
     from xmtpu_torch.pipeline import xm2
     from xmtpu_torch.pipeline.synthetic import make_scene_window
-    from xmtpu_torch.solver import trust_region as tr
 
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
@@ -159,9 +217,10 @@ def kernel_times(dev) -> dict:
     _build.build_all()
     f32 = torch.float32
     out = dict(root=os.path.dirname(os.path.dirname(
-        os.path.abspath(xmtpu_torch.__file__))), step={})
+        os.path.abspath(xmtpu_torch.__file__))), step={}, dense={})
     ops = []
-    for name, params in (("A", cs.SCENE_A), ("B", cs.SCENE_B)):
+    for name, params in (("A", cs.SCENE_A), ("512", cs.SCENE_512),
+                         ("B", cs.SCENE_B)):
         C, _, _ = cs.scene(params, dev)
         ops.append((name, DenseQ(C.to(f32)), C.shape[0] // 3))
         del C
@@ -169,45 +228,70 @@ def kernel_times(dev) -> dict:
     Q_C, _, _ = xm2._assemble_operator(scC.weights, scC.edges, scC.landmarks,
                                        False, "auto", device=dev)
     ops.append(("C", cast_qop(Q_C, f32), scC.N))
-    geometry = getattr(ft, "step_geometry", None)
+    dense_geometry = getattr(ft, "dense_geometry", None)
     for name, q, n in ops:
         R = mf.identity_frames(n, 3, device=dev)
         ones = torch.ones((n,), dtype=torch.float64, device=dev)
         inp = cs.f32_phase_inputs(q, R, ones)
-        _, const, state, sc, cfgsc = cs.step_inputs(inp)
-        max_inner = int(inp["cfg"].max_inner)
-        rec = dict(n=n, ms=cs.time_step(const, state, sc, cfgsc, max_inner),
-                   bound_ms=cs.bound_ms(*cs.step_bytes_ops(n, 3))[0],
-                   geometry=list(geometry(n, 3)) if geometry else
-                   [1, min(1024, 32 * -(-n // 32))])
-        if geometry is not None and n > ft.CAMS_PER_BLOCK:
-            rec["sweep"] = {}
-            for blocks in (2, 4, 8, 12, 16):
-                threads = min(ft.max_threads(3), 32 * -(-n // (32 * blocks)))
-                ft.step_geometry = lambda n_, o_, g=(blocks, threads): g
-                rec["sweep"][f"{blocks}x{threads}"] = cs.time_step(
-                    const, state, sc, cfgsc, max_inner)
-            ft.step_geometry = geometry
-        out["step"][name] = rec
+        if name != "512":
+            _, const, state, sc, cfgsc = cs.step_inputs(inp)
+            max_inner = int(inp["cfg"].max_inner)
+            out["step"][name] = dict(
+                n=n, ms=cs.time_step(const, state, sc, cfgsc, max_inner),
+                bound_ms=cs.bound_ms(*cs.step_bytes_ops(n, 3))[0],
+                geometry=list(ft.step_geometry(n, 3)))
         if name == "C":
-            # inner iterations of the f32 phase's first outer iterations
-            # (chip_smoke.LONG_C is one that runs at least 10)
-            cfg32, gradtol32 = tr.TRConfig().f32_ladder(1e-6)
-            delta_bar = np.float32(np.sqrt(float(n * 3 + n - 1)))
-            st = tr._init_state(q, R.to(f32), ones.to(f32), np.float32(0.0),
-                                delta_bar, cfg32)
-            iters = []
-            for k in range(120):
-                t0 = st.total_inner
-                st = tr._run_chunk(q, st, 0.0, gradtol32, delta_bar, cfg32,
-                                   k + 1)
-                if st.k <= k:
-                    break
-                iters.append(int(st.total_inner - t0))
-            out["C_f32_phase_inner_iters"] = iters
+            continue
+        rec = _dense_times(cs, ft, inp)
+        if dense_geometry is not None and name != "B":
+            rec["sweep"] = {}
+            keep = (ft.DENSE_CAMS_PER_BLOCK, ft.DENSE_THREADS)
+            cams = (8, 16, 32, 64, 128) if n <= 128 else (32, 64, 128)
+            for cpb in cams:
+                for threads in (128, 256):
+                    ft.DENSE_CAMS_PER_BLOCK, ft.DENSE_THREADS = cpb, threads
+                    g = dense_geometry(n, 3)
+                    _, const, state, sc, cfgsc = cs.step_inputs(inp)
+                    C32 = ft.dense_matrix(inp["qmul"], n)
+                    rec["sweep"][f"{g[0]}x{g[1]}"] = cs.time_step(
+                        const, state, sc, cfgsc, int(inp["cfg"].max_inner),
+                        C32=C32)
+            ft.DENSE_CAMS_PER_BLOCK, ft.DENSE_THREADS = keep
+        out["dense"][name] = rec
+    del ops
     out["segsum"] = [dict(kernel=c["kernel"], tag=c["tag"], ms=c["ms"],
                           library_ms=c["library_ms"], bound_ms=c["bound"][0])
                      for c in cs.hold_segsum(Q_C, dev)]
+    if hasattr(ss, "csr_threads"):
+        lib = ss._lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out["csr_floor"], out["csr_sweep"] = {}, {}
+        for order in ("l", "f"):
+            for dt in (torch.float32, torch.float64):
+                for D in (3, 6, 9, 18):
+                    vals, ids, off, S = _csr_inputs(Q_C, dev, order, D, dt)
+                    threads = ss.csr_threads(S, D)
+                    grids = {"this": (-(-S * D // threads), threads, 0),
+                             "256 a block": (-(-S * D // 256), 256, 0)}
+                    out["csr_floor"][f"{order} {str(dt)[6:]} D={D}"] = {
+                        k: cs.device_ms(lambda g=g: lib.xm_segsum_floor(
+                            *g, stream), 100) for k, g in grids.items()}
+        keep = (ss.CSR_THREADS, ss.csr_batch)
+        f64 = torch.float64
+        for order, dt, D in (("l", f32, 3), ("f", f32, 3), ("l", f32, 9),
+                             ("l", f32, 18), ("f", f32, 18), ("l", f64, 18),
+                             ("f", f64, 18)):
+            vals, ids, off, S = _csr_inputs(Q_C, dev, order, D, dt)
+            res = {}
+            for threads in (64, 128, 256):
+                for batch in (1, 16):
+                    ss.CSR_THREADS = (threads,)
+                    ss.csr_batch = lambda E, S, D, b=batch: b
+                    res[f"{threads}t b{batch}"] = cs.device_ms(
+                        lambda: ss.sorted_segment_sum(vals, ids, S,
+                                                      offsets=off), 100)
+            out["csr_sweep"][f"{order} {str(dt)[6:]} D={D}"] = res
+            ss.CSR_THREADS, ss.csr_batch = keep
     return out
 
 

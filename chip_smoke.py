@@ -11,10 +11,14 @@ Phases (any failure exits non-zero; no phase is caught):
    the phase where the Steihaug loop runs long): one inner iteration, two
    launches of it on the same inputs that must give the same bits, and a
    whole Steihaug loop; time both versions beside the kernel's bound and
-   print ``tcg_step``'s launch geometry (``fused_tcg.step_geometry``);
+   print the launch geometry (``fused_tcg.step_geometry``, or
+   ``dense_geometry`` for ``tcg_step_dense``, which the dense cases also
+   time beside ``torch.matmul`` on the same W and ``tcg_step`` alone);
 3. scene A (n=120, the saddle-escape anchor): dense assembly on the card and
    the mixed certified staircase, which must certify at rank 4 through the
-   dense kernel variant and match the port's own CPU run;
+   dense kernel variant — one ``tcg_step_dense`` launch for each inner
+   iteration the fused loops enqueue, no ``tcg_step`` — and match the
+   port's own CPU run;
 4. scene B (n=1934): the same through the split variant, certified at
    rank 3;
 5. scene C (n=6144, the implicit size): ``xm2._assemble_operator`` must pick
@@ -22,7 +26,8 @@ Phases (any failure exits non-zero; no phase is caught):
    plain twin on its real orderings (landmark and frame, D in {3, 6, 9, 18},
    f32 and f64, the blocked one on ``schedule_edges``' layout of the landmark
    ordering), two launches must give the same bits, and each is timed beside
-   its bound and ``index_add_``; then ``tcg_step`` is held as in phase 2 at
+   its bound and ``index_add_``, the CSR kernel also bit for bit against the
+   CPU twin; then ``tcg_step`` is held as in phase 2 at
    n=6144 (the split variant on the f32 cast of ``Q_C``, the f64 loop on
    ``Q_C``), at the phase's first outer iteration and at ``LONG_C``;
 6. scene B through ``SchurQ`` (the mixed ladder on the two-float operator,
@@ -46,12 +51,14 @@ complete (CUDA events), which the host bounds at these sizes; ``plain_ms``
 is the plain version's time per call by CUDA events, its host syncs
 included; ``bound_ms`` is the larger of the bytes it must move over the
 HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
-card's time for ``torch.matmul`` on the same W (fused tCG) or for one
-``index_add_`` on the same tensors (segment sums, whose plain twin is
-``zeros`` + ``index_add_``).  Each kernel's
-``launches`` sums its counter over the main-path runs of phases 3, 4, 6, 7
-and 8, each read just after its run with the counters set to 0 just
-before.
+card's time for ``torch.matmul`` on the same W (the dense variant's
+product) or for one ``index_add_`` on the same tensors (segment sums, whose
+plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
+its counter over the main-path runs of phases 3, 4, 6, 7 and 8, each read
+just after its run with the counters set to 0 just before; the segment
+sum's launches are also counted by dtype and D (its ``shapes``), and its
+row on the ``kernels`` line shows the most launched shape, f32 D=3 on the
+landmark ordering.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -259,10 +266,21 @@ def step_bytes_ops(n: int, o: int):
 
 
 def cw_bytes_ops(n: int, o: int):
+    """The dense variant's product alone: C, W's inputs, CW out."""
     m = 3 * n
     nbytes = F32 * (m * m + 2 * 3 * o * n + 2 * n + 8 + 3 * o * n)
     ops = 2 * m * m * o + 3 * 3 * o * n
     return nbytes, ops
+
+
+def dense_bytes_ops(n: int, o: int):
+    """One ``tcg_step_dense``: ``tcg_step``'s bytes with C read once more
+    (W's inputs are already among them, CWt now written instead of read),
+    and both operation counts."""
+    m = 3 * n
+    sb, so = step_bytes_ops(n, o)
+    cb, co = cw_bytes_ops(n, o)
+    return sb + F32 * m * m, so + co
 
 
 def bound_ms(nbytes, ops, peak_ops=PEAK_F32):
@@ -335,23 +353,36 @@ def step_inputs(inp):
     return args, const, state, sc, cfgsc
 
 
-def time_step(const, state, sc, cfgsc, max_inner: int, reps: int = 200):
-    """Device ms per ``tcg_step`` launch (profiler durations) on clones of
-    the inputs, the carry reset to ``sc`` before every launch so that none
-    returns early."""
+def time_step(const, state, sc, cfgsc, max_inner: int, reps: int = 200,
+              C32=None):
+    """Device ms per ``tcg_step`` launch (profiler durations; with ``C32``,
+    per ``tcg_step_dense`` launch) on clones of the inputs, the carry reset
+    to ``sc`` before every launch so that none returns early."""
     from xmtpu_torch.ops import fused_tcg as ft
 
     ck = [v.clone() for v in const.values()]
     sk = [t.clone() for t in state]
     sck = sc.clone()
-    return device_ms(lambda: ft.tcg_step(*ck, *sk, sck, cfgsc, max_inner),
-                     reps, setup=lambda: sck.copy_(sc))
+    if C32 is None:
+        step = lambda: ft.tcg_step(*ck, *sk, sck, cfgsc, max_inner)  # noqa: E731
+    else:
+        step = lambda: ft.tcg_step_dense(C32, *ck, *sk, sck, cfgsc,  # noqa: E731
+                                         max_inner)
+    return device_ms(step, reps, setup=lambda: sck.copy_(sc))
 
 
-def hold_kernels(q64, inp, tag, with_cw: bool):
-    """One iteration and a whole Steihaug loop: kernel vs plain on the card;
-    ``q64`` is the f64 operator of the reference loop.  Returns the max
-    errors, the timings and the launch geometry of this case."""
+def geometry_text(blocks: int, threads: int) -> str:
+    return (f"{blocks} block{'s' * (blocks > 1)} "
+            f"({'a cluster' if blocks > 1 else 'no cluster'}) x {threads} "
+            f"threads")
+
+
+def hold_kernels(q64, inp, tag, dense: bool):
+    """One iteration and a whole Steihaug loop: kernel vs plain on the card
+    (``dense``: ``tcg_step_dense``, the product inside; else ``tcg_step``
+    with the split product); ``q64`` is the f64 operator of the reference
+    loop.  Returns the max errors, the timings and the launch geometry of
+    this case."""
     import torch
 
     from xmtpu_torch.ops import fused_tcg as ft
@@ -361,53 +392,55 @@ def hold_kernels(q64, inp, tag, with_cw: bool):
     n, _, o = R.shape
     max_inner = int(inp["cfg"].max_inner)
     args, const, state, sc, cfgsc = step_inputs(inp)
-    C32 = ft.dense_matrix(inp["qmul"], n) if with_cw else None
-    blocks, threads = ft.step_geometry(n, o)
-    out = {"geometry": f"{blocks} block{'s' * (blocks > 1)} "
-                       f"({'a cluster' if blocks > 1 else 'no cluster'}) "
-                       f"x {threads} threads"}
+    C32 = ft.dense_matrix(inp["qmul"], n) if dense else None
+    out = {"geometry": geometry_text(*(ft.dense_geometry(n, o) if dense
+                                       else ft.step_geometry(n, o))),
+           "step_geometry": geometry_text(*ft.step_geometry(n, o))}
 
     # --- one iteration --------------------------------------------------
     def clone_all():
         c = {k: v.clone() for k, v in const.items()}
         return c, tuple(t.clone() for t in state), sc.clone()
 
+    def launch(c, st, s_):
+        if dense:
+            ft.tcg_step_dense(C32, *c.values(), *st, s_, cfgsc, max_inner)
+        else:
+            ft.tcg_step(*c.values(), *st, s_, cfgsc, max_inner)
+
     ck, sk, sck = clone_all()
     cp, sp, scp = clone_all()
     cr, sr, scr = clone_all()
-    if with_cw:
-        ft.tcg_cw_dense(C32, ck["Rt"], ck["s_ex_t"], sk[4], sk[5], sck,
-                        ck["CWt"], max_inner)
-        ft.tcg_cw_dense_plain(C32, cp["Rt"], cp["s_ex_t"], sp[4], sp[5], scp,
-                              cp["CWt"], max_inner)
-        torch.cuda.synchronize()
-        scale = max(1e-3, float(cp["CWt"].abs().max()))
-        out["cw_err"] = assert_close(f"{tag} tcg_cw_dense CW", ck["CWt"],
-                                     cp["CWt"], 5e-4 * scale, 5e-3)
-        # feed both steps the same product
-        ck["CWt"].copy_(cp["CWt"])
-        cr["CWt"].copy_(cp["CWt"])
-    ft.tcg_step(*ck.values(), *sk, sck, cfgsc, max_inner)
-    ft.tcg_step(*cr.values(), *sr, scr, cfgsc, max_inner)
-    ft.tcg_step_plain(*cp.values(), *sp, scp, cfgsc, max_inner)
+    launch(ck, sk, sck)
+    launch(cr, sr, scr)
+    if dense:
+        ft.tcg_step_dense_plain(C32, *cp.values(), *sp, scp, cfgsc, max_inner)
+    else:
+        ft.tcg_step_plain(*cp.values(), *sp, scp, cfgsc, max_inner)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip((*sk, sck), (*sr, scr))):
-        raise AssertionError(f"{tag} tcg_step: two launches on the same "
+    name = "tcg_step_dense" if dense else "tcg_step"
+    if not all(torch.equal(a, b) for a, b in zip((ck["CWt"], *sk, sck),
+                                                 (cr["CWt"], *sr, scr))):
+        raise AssertionError(f"{tag} {name}: two launches on the same "
                              f"inputs differ")
+    if dense:
+        scale = max(1e-3, float(cp["CWt"].abs().max()))
+        out["cw_err"] = assert_close(f"{tag} {name} CW", ck["CWt"],
+                                     cp["CWt"], 5e-4 * scale, 5e-3)
     sc_k, sc_p = sck.tolist(), scp.tolist()
     if [sc_k[i] for i in (ft.S_ER, ft.S_DONE, ft.S_I)] != \
             [sc_p[i] for i in (ft.S_ER, ft.S_DONE, ft.S_I)]:
-        raise AssertionError(f"{tag} tcg_step carry: kernel {sc_k} vs "
+        raise AssertionError(f"{tag} {name} carry: kernel {sc_k} vs "
                              f"plain {sc_p}")
     # the step v (and its scale part) at the v tolerance, everything derived
     # from the Hessian product at the Hv tolerance
-    errs = [assert_close(f"{tag} tcg_step carry", sck[:ft.S_ER],
+    errs = [assert_close(f"{tag} {name} carry", sck[:ft.S_ER],
                          scp[:ft.S_ER], 0.0, 5e-3)]
     names = ("vR", "vs", "rR", "rs", "pR", "ps", "hvR", "hvs")
     for nm, a, b in zip(names, sk, sp):
         at, rt = (2e-4, 2e-3) if nm in ("vR", "vs") else (5e-4, 5e-3)
         scale = max(1e-3, float(b.abs().max()))
-        errs.append(assert_close(f"{tag} tcg_step {nm}", a, b, at * scale, rt))
+        errs.append(assert_close(f"{tag} {name} {nm}", a, b, at * scale, rt))
     out["step_err"] = worst(errs)
 
     # --- the whole Steihaug loop -----------------------------------------
@@ -420,7 +453,7 @@ def hold_kernels(q64, inp, tag, with_cw: bool):
         cp, sp, scp = {k: v.clone() for k, v in const.items()}, \
             tuple(t.clone() for t in state), sc.clone()
         for _ in range(max_inner):
-            if with_cw:
+            if dense:
                 ft.tcg_cw_dense_plain(C32, cp["Rt"], cp["s_ex_t"], sp[4],
                                       sp[5], scp, cp["CWt"], max_inner)
             else:
@@ -478,52 +511,53 @@ def hold_kernels(q64, inp, tag, with_cw: bool):
                            rel_gap(res_k, res_p))
 
     # --- timings -----------------------------------------------------------
-    ck, sk, sck = clone_all()
     reps = 200
-    reset = lambda: sck.copy_(sc)  # noqa: E731 — a live carry every launch
-    step = lambda: ft.tcg_step(*ck.values(), *sk, sck, cfgsc,  # noqa: E731
-                               max_inner)
     out["step_ms"] = time_step(const, state, sc, cfgsc, max_inner, reps)
-    out["step_enqueue_ms"] = cuda_ms(step, reps, setup=reset)
-    ck, sk, sck = clone_all()
-    out["step_plain_ms"] = cuda_ms(
-        lambda: ft.tcg_step_plain(*ck.values(), *sk, sck, cfgsc, max_inner),
-        20, setup=reset)
     out["step_bound"] = bound_ms(*step_bytes_ops(n, o))
-    if with_cw:
+    ck, sk, sck = clone_all()
+    reset = lambda: sck.copy_(sc)  # noqa: E731 — a live carry every launch
+    if dense:
+        out["dense_ms"] = time_step(const, state, sc, cfgsc, max_inner, reps,
+                                    C32=C32)
+        out["dense_enqueue_ms"] = cuda_ms(lambda: launch(ck, sk, sck), reps,
+                                          setup=reset)
         ck, sk, sck = clone_all()
-        cw = lambda: ft.tcg_cw_dense(  # noqa: E731
-            C32, ck["Rt"], ck["s_ex_t"], sk[4], sk[5], sck, ck["CWt"],
-            max_inner)
-        out["cw_ms"] = device_ms(cw, reps)
-        out["cw_enqueue_ms"] = cuda_ms(cw, reps)
-        out["cw_plain_ms"] = cuda_ms(lambda: ft.tcg_cw_dense_plain(
-            C32, ck["Rt"], ck["s_ex_t"], sk[4], sk[5], sck, ck["CWt"],
-            max_inner), 50)
+        out["dense_plain_ms"] = cuda_ms(lambda: ft.tcg_step_dense_plain(
+            C32, *ck.values(), *sk, sck, cfgsc, max_inner), 20, setup=reset)
+        out["dense_bound"] = bound_ms(*dense_bytes_ops(n, o))
         # the library yardstick: the product alone, on this call's W
         Wf = mf.flatten(ft.from_t(sk[4] * ck["s_ex_t"] + ck["Rt"] * sk[5],
                                   n, o)).contiguous()
         out["cw_library_ms"] = device_ms(lambda: torch.matmul(C32, Wf),
                                          reps)
-        out["cw_bound"] = bound_ms(*cw_bytes_ops(n, o))
+    else:
+        out["step_enqueue_ms"] = cuda_ms(lambda: launch(ck, sk, sck), reps,
+                                         setup=reset)
+        ck, sk, sck = clone_all()
+        out["step_plain_ms"] = cuda_ms(lambda: ft.tcg_step_plain(
+            *ck.values(), *sk, sck, cfgsc, max_inner), 20, setup=reset)
     return out
 
 
-def hold_case(tag, q64, inp, with_cw: bool) -> dict:
+def hold_case(tag, q64, inp, dense: bool) -> dict:
     """:func:`hold_kernels` on one case, logged."""
-    r = hold_kernels(q64, inp, tag, with_cw)
+    r = hold_kernels(q64, inp, tag, dense)
     msg = (f"[smoke] {tag}: {r['geometry']}; step err {r['step_err'][1]:.1e} "
            f"(two launches: same bits) loop (endreason, iters)={r['loop']} "
            f"err {r['loop_err'][1]:.1e} (f32 noise band vs f64 loop "
-           f"{r['loop_f64_gap']:.1e}); tcg_step {r['step_ms']:.4f} ms "
-           f"(enqueue {r['step_enqueue_ms']:.4f}) plain "
-           f"{r['step_plain_ms']:.4f} ms bound {r['step_bound'][0]:.5f}")
-    if with_cw:
-        msg += (f"; tcg_cw_dense err {r['cw_err'][1]:.1e} "
-                f"{r['cw_ms']:.4f} ms (enqueue {r['cw_enqueue_ms']:.4f}) "
-                f"plain {r['cw_plain_ms']:.4f} ms "
-                f"matmul {r['cw_library_ms']:.4f} ms bound "
-                f"{r['cw_bound'][0]:.5f}")
+           f"{r['loop_f64_gap']:.1e}); ")
+    if dense:
+        msg += (f"tcg_step_dense CW err {r['cw_err'][1]:.1e}, "
+                f"{r['dense_ms']:.4f} ms (enqueue {r['dense_enqueue_ms']:.4f})"
+                f" plain {r['dense_plain_ms']:.4f} ms bound "
+                f"{r['dense_bound'][0]:.5f}; yardsticks: matmul "
+                f"{r['cw_library_ms']:.4f} ms, tcg_step alone "
+                f"{r['step_ms']:.4f} ms ({r['step_geometry']}, bound "
+                f"{r['step_bound'][0]:.5f})")
+    else:
+        msg += (f"tcg_step {r['step_ms']:.4f} ms (enqueue "
+                f"{r['step_enqueue_ms']:.4f}) plain {r['step_plain_ms']:.4f} "
+                f"ms bound {r['step_bound'][0]:.5f}")
     log(msg)
     return r
 
@@ -586,6 +620,13 @@ def hold_segsum(Q, dev, reps: int = 100):
                     if not torch.equal(a, b):
                         raise AssertionError(f"segsum {tag}: two launches "
                                              f"differ")
+                    # the CSR kernel adds in row order from zero, as the
+                    # CPU twin does: the same bits
+                    if kind == "csr" and not torch.equal(
+                            a.cpu(), ss.sorted_segment_sum_plain(
+                                vals.cpu(), ids.cpu(), S)):
+                        raise AssertionError(f"segsum {tag}: not the CPU "
+                                             f"twin's bits")
                     err = (a - want).abs()
                     if bool((err > tol).any()) or not bool(
                             torch.isfinite(a).all()):
@@ -634,22 +675,29 @@ def check_rotations(tag, got, ref):
                                  f"{ref[k]:.3e}")
 
 
-def reset_counts():
+def counted_kernels():
     from xmtpu_torch.ops import fused_tcg as ft
     from xmtpu_torch.ops import segsum as ss
 
-    for k in (ft.tcg_step, ft.tcg_cw_dense, ss.sorted_segment_sum,
-              ss.sorted_segment_sum_blocked):
+    return (ft.tcg_step, ft.tcg_step_dense, ss.sorted_segment_sum,
+            ss.sorted_segment_sum_blocked)
+
+
+def reset_counts():
+    from xmtpu_torch.ops import segsum as ss
+
+    for k in counted_kernels():
         k.launches = 0
+    ss.sorted_segment_sum.shapes = {}
 
 
 def read_counts() -> dict:
-    from xmtpu_torch.ops import fused_tcg as ft
+    """Launches by kernel, and the segment sum's by dtype and D."""
     from xmtpu_torch.ops import segsum as ss
 
-    return {k.__name__: k.launches
-            for k in (ft.tcg_step, ft.tcg_cw_dense, ss.sorted_segment_sum,
-                      ss.sorted_segment_sum_blocked)}
+    out = {k.__name__: k.launches for k in counted_kernels()}
+    out["sorted_segment_sum shapes"] = dict(ss.sorted_segment_sum.shapes)
+    return out
 
 
 def hold_carried_operator(scB, dev) -> dict:
@@ -805,26 +853,47 @@ def run(dev, card: str) -> int:
 
     # ---- 3. scene A: the mixed certified staircase -------------------------
     log(f"[smoke] scene A: make_scene {gen_A:.2f} s, assembly {asm_A:.3f} s")
+    # the fused loops' iterations: each enqueues FLAG_EVERY launches between
+    # reads of the done flag, so a loop that ran i iterations enqueued
+    # FLAG_EVERY * ceil(i / FLAG_EVERY)
+    fused_iters = []
+    fused_loop = ft.inner_tcg_fused
+
+    def counted_loop(*a, **k):
+        r = fused_loop(*a, **k)
+        fused_iters.append(r[5])
+        return r
+
     reset_counts()
-    t0 = time.perf_counter()
-    res_A = solve_arrays(C_A, max_rank=6, tol=1e-6, precision="mixed",
-                         inner_f32=True, verbose=True, device=dev)
-    torch.cuda.synchronize()
-    wall_A = time.perf_counter() - t0
+    ft.inner_tcg_fused = counted_loop
+    try:
+        t0 = time.perf_counter()
+        res_A = solve_arrays(C_A, max_rank=6, tol=1e-6, precision="mixed",
+                             inner_f32=True, verbose=True, device=dev)
+        torch.cuda.synchronize()
+        wall_A = time.perf_counter() - t0
+    finally:
+        ft.inner_tcg_fused = fused_loop
     counts = {"A": read_counts()}
-    launches_A = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
+    launches_A = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
+    enqueued_A = sum(ft.FLAG_EVERY * max(1, -(-i // ft.FLAG_EVERY))
+                     for i in fused_iters)
     log(f"[smoke] scene A: rank {res_A.rank} status {res_A.status} primal "
         f"{res_A.primal!r} gap {res_A.gap:.3e} lam_min {res_A.lam_min:.3e} "
         f"outer {res_A.outer_iters} inner {res_A.total_inner} wall "
-        f"{wall_A:.2f} s launches step/cw {launches_A}")
+        f"{wall_A:.2f} s launches tcg_step/tcg_step_dense {launches_A}; "
+        f"{len(fused_iters)} fused loops ran {sum(fused_iters)} inner "
+        f"iterations and enqueued {enqueued_A}")
     for st in res_A.stages:
         log(f"[smoke] scene A stage {st}")
     if not (res_A.certified and res_A.rank == 4 and res_A.status == 1):
         raise AssertionError("scene A: not certified at rank 4")
     if abs(res_A.primal - PRIMAL_A) > RTOL_PRIMAL * PRIMAL_A:
         raise AssertionError(f"scene A primal {res_A.primal} vs {PRIMAL_A}")
-    if min(launches_A) <= 0:
-        raise AssertionError(f"scene A: a kernel never launched {launches_A}")
+    if launches_A != (0, enqueued_A) or enqueued_A <= 0:
+        raise AssertionError(f"scene A: expected one tcg_step_dense launch "
+                             f"for each of {enqueued_A} enqueued iterations "
+                             f"and no tcg_step, got {launches_A}")
     t0 = time.perf_counter()
     res_A_cpu = solve_arrays(C_A.cpu(), max_rank=6, tol=1e-6,
                              precision="mixed", inner_f32=True,
@@ -845,11 +914,11 @@ def run(dev, card: str) -> int:
     torch.cuda.synchronize()
     wall_B = time.perf_counter() - t0
     counts["B"] = read_counts()
-    launches_B = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
+    launches_B = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
     log(f"[smoke] scene B: rank {res_B.rank} status {res_B.status} primal "
         f"{res_B.primal!r} gap {res_B.gap:.3e} lam_min {res_B.lam_min:.3e} "
         f"outer {res_B.outer_iters} inner {res_B.total_inner} wall "
-        f"{wall_B:.2f} s launches step/cw {launches_B}")
+        f"{wall_B:.2f} s launches tcg_step/tcg_step_dense {launches_B}")
     for st in res_B.stages:
         log(f"[smoke] scene B stage {st}")
     if not (res_B.certified and res_B.rank == 3 and res_B.status == 1):
@@ -858,7 +927,7 @@ def run(dev, card: str) -> int:
         raise AssertionError(f"scene B primal {res_B.primal} vs {PRIMAL_B}")
     if launches_B[0] <= 0 or launches_B[1] != 0:
         raise AssertionError(f"scene B: expected split-variant launches only, "
-                             f"got step/cw {launches_B}")
+                             f"got tcg_step/tcg_step_dense {launches_B}")
 
     del C_A, C_B
 
@@ -994,16 +1063,23 @@ def run(dev, card: str) -> int:
 
     # ---- 9. report ------------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
-    step_err = worst([r[k] for r in held.values()
+    dense_cases = [r for r in held.values() if "dense_ms" in r]
+    step_err = worst([r[k] for r in held.values() if "dense_ms" not in r
                       for k in ("step_err", "loop_err")])
-    cw_err = worst([r["cw_err"] for r in held.values() if "cw_err" in r])
+    dense_err = worst([r[k] for r in dense_cases
+                       for k in ("cw_err", "step_err", "loop_err")])
 
     def total(name):
-        return sum(c[name] for c in counts.values())
+        return sum(run[name] for run in counts.values())
 
-    def seg_row(kind, name, replaces):
+    shapes = {}
+    for run in counts.values():
+        for k, v in run["sorted_segment_sum shapes"].items():
+            shapes[k] = shapes.get(k, 0) + v
+
+    def seg_row(kind, name, replaces, D):
         mine = [c for c in seg_cases if c["kernel"] == kind]
-        rep = next(c for c in mine if c["order"] == "l" and c["D"] == 6
+        rep = next(c for c in mine if c["order"] == "l" and c["D"] == D
                    and c["dtype"] == "float32")
         return dict(
             name=name, route="cuda", source="xmtpu_torch/csrc/segsum.cu",
@@ -1013,10 +1089,14 @@ def run(dev, card: str) -> int:
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound"][0], bound_by=rep["bound"][1],
             library_ms=rep["library_ms"],
-            shape=f"scene C landmark ordering, E={rep_E}, S={n_land}, D=6 "
+            shape=f"scene C landmark ordering, E={rep_E}, S={n_land}, D={D} "
                   f"f32; all {len(mine)} cases on the [smoke] segsum lines")
 
     rep_E, n_land = len(scC.edges), scC.M
+    d512 = held["n512 o=3"]
+    csr_row = seg_row("csr", "sorted_segment_sum",
+                      "xmtpu/ops/pallas_segsum.py:46", 3)
+    csr_row["shapes"] = shapes
     kernels = [
         dict(name="tcg_step", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",
@@ -1033,21 +1113,24 @@ def run(dev, card: str) -> int:
                    f"launches of a traced scene C solve; scene B n={nB}: "
                    f"{b['step_ms']:.4f} ms, bound {b['step_bound'][0]:.5f}, "
                    f"{b['geometry']}; scene A n={nA}: {a['step_ms']:.4f} ms, "
-                   f"bound {a['step_bound'][0]:.6f}, {a['geometry']}"),
-        dict(name="tcg_cw_dense", route="cuda",
+                   f"bound {a['step_bound'][0]:.6f}, {a['step_geometry']}"),
+        dict(name="tcg_step_dense", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",
              replaces="xmtpu/ops/pallas_tcg.py:109",
-             launches=total("tcg_cw_dense"),
-             max_abs_err=cw_err[0], max_rel_err=cw_err[1],
-             ms=a["cw_ms"], enqueue_ms=a["cw_enqueue_ms"],
-             plain_ms=a["cw_plain_ms"],
-             bound_ms=a["cw_bound"][0], bound_by=a["cw_bound"][1],
-             library_ms=a["cw_library_ms"],
-             shape=f"n={nA} o=3 (scene A); n=512: "
-                   f"{held['n512 o=3']['cw_ms']:.4f} ms"),
-        seg_row("csr", "sorted_segment_sum", "xmtpu/ops/pallas_segsum.py:46"),
+             launches=total("tcg_step_dense"),
+             max_abs_err=dense_err[0], max_rel_err=dense_err[1],
+             ms=a["dense_ms"], enqueue_ms=a["dense_enqueue_ms"],
+             plain_ms=a["dense_plain_ms"],
+             bound_ms=a["dense_bound"][0], bound_by=a["dense_bound"][1],
+             library_ms=a["cw_library_ms"], geometry=a["geometry"],
+             shape=f"n={nA} o=3 (scene A); library_ms: torch.matmul of the "
+                   f"product alone on the same W; n=512: "
+                   f"{d512['dense_ms']:.4f} ms, bound "
+                   f"{d512['dense_bound'][0]:.5f}, matmul "
+                   f"{d512['cw_library_ms']:.4f} ms, {d512['geometry']}"),
+        csr_row,
         seg_row("blocked", "sorted_segment_sum_blocked",
-                "xmtpu/ops/pallas_segsum.py:222"),
+                "xmtpu/ops/pallas_segsum.py:222", 6),
     ]
     log(f"[smoke] launches per main-path run: {counts}")
     log(json.dumps({"kernels": kernels}))

@@ -83,7 +83,7 @@ def _assert_loop_close(got, ref):
 @pytest.mark.parametrize("dense", [True, False])
 def test_plain_matches_pallas_interpret(o, dense, monkeypatch):
     """Both variants: dense (``qmul`` is ``DenseQ.apply``, the product inside
-    ``_tcg_kernel_dense`` / ``tcg_cw_dense``) and split (a plain callable,
+    ``_tcg_kernel_dense`` / ``tcg_step_dense``) and split (a plain callable,
     the product outside ``_tcg_kernel`` / ``tcg_step``)."""
     monkeypatch.setenv("XMTPU_PALLAS_TCG", "interpret")
     C, R, s_ex = _problem(o=o)
@@ -93,10 +93,10 @@ def test_plain_matches_pallas_interpret(o, dense, monkeypatch):
     ref = pallas_tcg.inner_tcg_fused(*j[:11], cfg_j, j[11])
     t = _torch_inputs(C, R, s_ex, dense)
     assert (ft.dense_matrix(t[0], R.shape[0]) is not None) == dense
-    launches = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
+    launches = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
     got = ft.inner_tcg_fused(*t[:11], cfg_t, t[11])
     # CPU tensors take the plain twins: no kernel launch is counted
-    assert (ft.tcg_step.launches, ft.tcg_cw_dense.launches) == launches
+    assert (ft.tcg_step.launches, ft.tcg_step_dense.launches) == launches
     _assert_loop_close(got, ref)
 
 

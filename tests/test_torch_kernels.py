@@ -14,7 +14,8 @@ reduction orders: arrays agree at the Pallas suite's f32 tolerances
 reason and iteration count exactly, on these well-separated problems.
 Segment sums: the kernels add each segment's rows in row order, as the
 CPU twin does, so they agree to a few ulps of the absolute-sum scale
-(``1e-6`` f32, ``1e-14`` f64 relative to it) and repeat bit for bit.
+(``1e-6`` f32, ``1e-14`` f64 relative to it) and repeat bit for bit; the
+CSR kernel equals the CPU twin bit for bit.
 """
 
 import numpy as np
@@ -43,11 +44,11 @@ def _lowrank_spd(n, rng, device, k=8):
 
 
 def _inputs(n=12, o=3, seed=3, dense=True, device="cpu"):
-    """Real tCG inputs at ``n`` cameras: a formed SPD ``C`` for ``n <= 64``
-    (through ``DenseQ`` when ``dense``), a low-rank-plus-diagonal operator
-    above."""
+    """Real tCG inputs at ``n`` cameras: a formed SPD ``C`` for ``n <= 64``,
+    and up to the dense gate when ``dense`` (through ``DenseQ`` when
+    ``dense``), a low-rank-plus-diagonal operator above."""
     rng = np.random.default_rng(seed)
-    if n <= 64:
+    if n <= 64 or (dense and n <= ft.DENSE_MAX_N):
         A = rng.normal(size=(3 * n, 3 * n))
         C = torch.tensor(A @ A.T / (3 * n) + np.eye(3 * n),
                          dtype=torch.float32, device=device)
@@ -122,15 +123,14 @@ def test_step_geometry_covers_every_camera(n, o):
 
 
 def test_done_carry_is_a_no_op():
-    """On a done carry both kernels (here their twins) leave every array
+    """On a done carry both variants (here their twins) leave every array
     untouched, so the host may enqueue iterations past the end."""
     args, minv = _inputs()
     const, state, sc, cfgsc = ft.prepare(*args[1:], CFG, minv)
     sc[ft.S_DONE] = 1.0
     before = [x.clone() for x in (*const.values(), *state, sc)]
     C32 = ft.dense_matrix(args[0], args[1].shape[0])
-    ft.tcg_cw_dense(C32, const["Rt"], const["s_ex_t"], state[4], state[5],
-                    sc, const["CWt"], 25)
+    ft.tcg_step_dense(C32, *const.values(), *state, sc, cfgsc, 25)
     ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
     after = [*const.values(), *state, sc]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
@@ -141,10 +141,76 @@ def test_twins_match_generic_loop(dense):
     """The plain twins, driven by ``inner_tcg_fused``, against the generic
     f32 loop of ``trust_region._inner_tcg``; no launch is counted."""
     args, minv = _inputs(o=4, seed=5, dense=dense)
-    launches = (ft.tcg_step.launches, ft.tcg_cw_dense.launches)
+    launches = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
     got = ft.inner_tcg_fused(*args, CFG, minv)
-    assert (ft.tcg_step.launches, ft.tcg_cw_dense.launches) == launches
+    assert (ft.tcg_step.launches, ft.tcg_step_dense.launches) == launches
     _assert_loop_close(got, tr._inner_tcg(*args, CFG, minv=minv))
+
+
+@pytest.mark.parametrize("o", [3, 5])
+def test_dense_twin_is_product_then_step(o):
+    """The dense variant's twin (the wrapper on CPU tensors) is the product
+    ``tcg_cw_dense_plain`` followed by ``tcg_step_plain``, bit for bit, the
+    product left in ``CWt``; no launch is counted."""
+    args, minv = _inputs(n=20, o=o, seed=7)
+    const, state, sc, cfgsc = ft.prepare(*args[1:], CFG, minv)
+    C32 = ft.dense_matrix(args[0], 20)
+    ref = ({k: v.clone() for k, v in const.items()},
+           [t.clone() for t in state], sc.clone())
+    n0 = ft.tcg_step_dense.launches
+    ft.tcg_step_dense(C32, *const.values(), *state, sc, cfgsc, 25)
+    assert ft.tcg_step_dense.launches == n0
+    c, st, s = ref
+    ft.tcg_cw_dense_plain(C32, c["Rt"], c["s_ex_t"], st[4], st[5], s,
+                          c["CWt"], 25)
+    ft.tcg_step_plain(*c.values(), *st, s, cfgsc, 25)
+    assert all(torch.equal(a, b) for a, b in
+               zip((*const.values(), *state, sc), (*c.values(), *st, s)))
+    assert float(sc[ft.S_I]) == 1.0
+
+
+def _dense_rows(o):
+    """Rows a warp of the dense product streams together (``DenseRows`` of
+    the kernel's ``MAXO`` instantiation for rank ``o``)."""
+    maxo = 4 if o <= 4 else 8 if o <= 8 else 16 if o <= 16 else 32
+    return 4 if maxo <= 4 else 2 if maxo <= 8 else 1
+
+
+@pytest.mark.parametrize("o", [3, 5, 12, 32])
+@pytest.mark.parametrize("n", [1, 12, 61, 120, 129, 300, 512])
+def test_dense_geometry_covers_every_camera_and_row(n, o):
+    """``tcg_step_dense``'s geometry: at most one cluster, threads within
+    the launch bounds, shared memory within its limit, no block without a
+    camera; the camera loop (block ``b`` takes ``[b*cpb, (b+1)*cpb)``,
+    thread ``t`` every ``threads``-th from ``b*cpb + t``) visits each camera
+    exactly once, and the product's row loop (warp ``w`` takes ``RW`` rows
+    from ``3*b*cpb + w*RW``, every ``warps*RW`` rows) each row of ``C``
+    exactly once, inside its block's cameras."""
+    blocks, threads = ft.dense_geometry(n, o)
+    assert 1 <= blocks <= ft.MAX_CLUSTER
+    assert threads % 32 == 0 and 32 <= threads <= ft.max_threads(o, dense=True)
+    assert ft.dense_smem_bytes(n, o, blocks, threads) <= ft.DENSE_SMEM_MAX
+    cpb = -(-n // blocks)
+    assert (blocks - 1) * cpb < n
+    cams, rows = [], []
+    rw, warps = _dense_rows(o), threads // 32
+    for b in range(blocks):
+        c0, c1 = b * cpb, min(n, (b + 1) * cpb)
+        for t in range(threads):
+            cams.extend(range(c0 + t, c1, threads))
+        for w in range(warps):
+            for g in range(3 * c0 + w * rw, 3 * c1, warps * rw):
+                rows.extend(r for r in range(g, g + rw) if r < 3 * c1)
+    assert np.array_equal(np.sort(cams), np.arange(n))
+    assert np.array_equal(np.sort(rows), np.arange(3 * n))
+
+
+@pytest.mark.parametrize("n,o", [(600, 32), (1200, 16), (6144, 3)])
+def test_dense_geometry_raises_past_shared_memory(n, o):
+    """W (3n x o) and the block's CW past a block's shared memory: the
+    geometry raises instead of launching."""
+    with pytest.raises(ValueError, match="shared memory"):
+        ft.dense_geometry(n, o)
 
 
 @pytest.fixture
@@ -159,78 +225,97 @@ def cuda_device():
 CARD_N = [12, 1000, 6001]
 
 
+# the dense variant: one block; rows of 12n bytes that are not 16-byte
+# aligned (n = 61); several blocks; the dense gate's n = 512
+DENSE_N = [12, 61, 120, 512]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("o", [3, 5])
 @pytest.mark.parametrize("n,dense", [(12, True), (12, False), (1000, False),
-                                     (6001, False)])
+                                     (6001, False), (61, True), (120, True),
+                                     (512, True)])
 def test_kernels_match_twins_on_card(o, n, dense, cuda_device):
+    """The whole loop: the dense variant launches ``tcg_step_dense`` once
+    an iteration and never ``tcg_step``; the split one only ``tcg_step``."""
     args, minv = _inputs(n=n, o=o, dense=dense)
     ref = ft.inner_tcg_fused(*args, CFG, minv)
     args, minv = _inputs(n=n, o=o, dense=dense, device=cuda_device)
-    step0, cw0 = ft.tcg_step.launches, ft.tcg_cw_dense.launches
+    step0, dense0 = ft.tcg_step.launches, ft.tcg_step_dense.launches
     got = ft.inner_tcg_fused(*args, CFG, minv)
     torch.cuda.synchronize()
-    assert ft.tcg_step.launches > step0
-    assert (ft.tcg_cw_dense.launches > cw0) == dense
+    launched = ft.tcg_step.launches - step0
+    launched_dense = ft.tcg_step_dense.launches - dense0
+    enqueued = ft.FLAG_EVERY * -(-got[5] // ft.FLAG_EVERY)
+    assert (launched, launched_dense) == ((0, enqueued) if dense
+                                          else (enqueued, 0))
     _assert_loop_close(got, ref)
 
 
-def _first_step(n, o, device):
-    """``prepare`` on :func:`_inputs` with ``CWt`` holding the first
-    iteration's product (``tcg_cw_dense`` at ``n <= 64``, else the split
-    product)."""
-    args, minv = _inputs(n=n, o=o, device=device)
+def _first_step(n, o, device, dense=False):
+    """``prepare`` on :func:`_inputs`; with ``dense``, also the f32 ``C``,
+    else ``CWt`` holds the first iteration's product (the split variant's
+    ``qmul``)."""
+    args, minv = _inputs(n=n, o=o, dense=dense, device=device)
     const, state, sc, cfgsc = ft.prepare(*args[1:], CFG, minv)
-    C32 = ft.dense_matrix(args[0], n)
-    if C32 is not None:
-        ft.tcg_cw_dense(C32, const["Rt"], const["s_ex_t"], state[4],
-                        state[5], sc, const["CWt"], 25)
+    if dense:
+        return ft.dense_matrix(args[0], n), const, state, sc, cfgsc
+    W = mf.flatten(ft.from_t(state[4] * const["s_ex_t"]
+                             + const["Rt"] * state[5], n, o))
+    const["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * args[0](W))))
+    return None, const, state, sc, cfgsc
+
+
+def _launch(C32, const, state, sc, cfgsc):
+    if C32 is None:
+        ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
     else:
-        W = mf.flatten(ft.from_t(state[4] * const["s_ex_t"]
-                                 + const["Rt"] * state[5], n, o))
-        const["CWt"].copy_(ft.to_t(mf.unflatten(2.0 * args[0](W))))
-    return const, state, sc, cfgsc
+        ft.tcg_step_dense(C32, *const.values(), *state, sc, cfgsc, 25)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("o", [3, 5])
-@pytest.mark.parametrize("n", CARD_N)
-def test_one_iteration_matches_twin_on_card(n, o, cuda_device):
-    """One launch against the twin, and a second launch on clones of the
-    same inputs gives the same bits."""
+@pytest.mark.parametrize("n,dense", [(n, False) for n in CARD_N]
+                         + [(n, True) for n in DENSE_N])
+def test_one_iteration_matches_twin_on_card(n, o, dense, cuda_device):
+    """One launch against the twin (the dense variant's product ``CWt``
+    too), and a second launch on clones of the same inputs gives the same
+    bits."""
     out = []
     for device in ("cpu", cuda_device):
-        const, state, sc, cfgsc = _first_step(n, o, device)
-        again = ([c.clone() for c in const.values()],
+        C32, const, state, sc, cfgsc = _first_step(n, o, device, dense)
+        again = ({k: c.clone() for k, c in const.items()},
                  [t.clone() for t in state], sc.clone())
-        ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
-        out.append((state, sc.cpu()))
-    ft.tcg_step(*again[0], *again[1], again[2], cfgsc, 25)
+        _launch(C32, const, state, sc, cfgsc)
+        out.append((const["CWt"].cpu(), state, sc.cpu()))
+    _launch(C32, again[0], again[1], again[2], cfgsc)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip((*state, sc),
-                                                 (*again[1], again[2])))
-    (s_plain, sc_plain), (s_kern, sc_kern) = out
+    assert all(torch.equal(a, b) for a, b in zip(
+        (const["CWt"], *state, sc), (again[0]["CWt"], *again[1], again[2])))
+    (cw_plain, s_plain, sc_plain), (cw_kern, s_kern, sc_kern) = out
     assert torch.equal(sc_kern[ft.S_ER:], sc_plain[ft.S_ER:])
     torch.testing.assert_close(sc_kern[:ft.S_ER], sc_plain[:ft.S_ER],
                                rtol=5e-3, atol=0.0)
-    for a, b in zip(s_kern, s_plain):
+    for a, b in zip((cw_kern, *s_kern), (cw_plain, *s_plain)):
         scale = max(1e-3, float(b.abs().max()))
         torch.testing.assert_close(a.cpu(), b, atol=5e-4 * scale, rtol=5e-3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", CARD_N)
-def test_done_carry_is_a_no_op_on_card(n, cuda_device):
+@pytest.mark.parametrize("n,dense", [(n, False) for n in CARD_N]
+                         + [(n, True) for n in DENSE_N])
+def test_done_carry_is_a_no_op_on_card(n, dense, cuda_device):
     """A done carry, or one at max_inner, leaves every array untouched at
-    every geometry: every block returns before the first barrier."""
+    every geometry: every block returns before the first barrier (the
+    dense variant before its product)."""
     for slot, value in ((ft.S_DONE, 1.0), (ft.S_I, 25.0)):
-        const, state, sc, cfgsc = _first_step(n, 3, cuda_device)
+        C32, const, state, sc, cfgsc = _first_step(n, 3, cuda_device, dense)
         sc[slot] = value
         before = [x.clone() for x in (*const.values(), *state, sc)]
-        n0 = ft.tcg_step.launches
-        ft.tcg_step(*const.values(), *state, sc, cfgsc, 25)
+        n0 = ft.tcg_step.launches + ft.tcg_step_dense.launches
+        _launch(C32, const, state, sc, cfgsc)
         torch.cuda.synchronize()
-        assert ft.tcg_step.launches == n0 + 1
+        assert ft.tcg_step.launches + ft.tcg_step_dense.launches == n0 + 1
         after = [*const.values(), *state, sc]
         assert all(torch.equal(a, b) for a, b in zip(before, after))
 
@@ -248,6 +333,12 @@ def test_wrappers_reject_bad_tensors_on_card(cuda_device):
     with pytest.raises(ValueError):
         ft.tcg_step(*dict(const, Rt=const["Rt"].cpu()).values(), *state, sc,
                     cfgsc, 25)
+    C32 = ft.dense_matrix(args[0], 12)
+    with pytest.raises(TypeError):
+        ft.tcg_step_dense(C32.double(), *const.values(), *state, sc, cfgsc,
+                          25)
+    with pytest.raises(ValueError):
+        ft.tcg_step_dense(C32[:-3], *const.values(), *state, sc, cfgsc, 25)
 
 
 # ------------------------------------------------------ segment sums --
@@ -303,6 +394,77 @@ def test_segment_offsets():
     assert off.tolist() == [0, 2, 2, 5, 5, 5, 6, 6]
 
 
+def _csr_layout(layout, S, seed):
+    """CSR offsets ``(S+1,)`` for the CSR kernel's cases: ``landmarks`` and
+    ``frames`` — ``bounds_l`` / ``bounds_f``-shaped, ~11 and ~44 rows a
+    segment; ``gaps`` — two thirds of the segments empty; ``long`` — one
+    segment of 5000 rows (longer than any chunk at D >= 3) among short
+    ones."""
+    rng = np.random.default_rng(seed)
+    if layout in ("landmarks", "frames"):
+        mean = 11 if layout == "landmarks" else 44
+        ids = rng.integers(0, S, S * mean)
+    elif layout == "gaps":
+        ids = rng.integers(0, S // 3, 4 * S) * 3
+    else:
+        assert layout == "long"
+        ids = np.concatenate([rng.integers(0, S, 3 * S),
+                              np.full(5000, S // 2)])
+    return np.searchsorted(np.sort(ids), np.arange(S + 1)).astype(np.int64)
+
+
+def _csr_walk(vals, off, batch):
+    """numpy mirror of ``segsum_csr`` in ``csrc/segsum.cu``: thread (s, d)
+    loads rows ``[off[s], off[s+1])`` of column d ``batch`` at a time and
+    adds each batch's rows in row order, in the values' own type, starting
+    from zero.  Returns the sums and the number of batches the longest
+    segment took."""
+    L = np.diff(off)
+    acc = np.zeros((len(L), vals.shape[1]), vals.dtype)
+    batches = 0
+    for b0 in range(0, int(L.max(initial=0)), batch):
+        batches += 1
+        x = np.zeros((batch,) + acc.shape, vals.dtype)
+        for u in range(batch):                 # every load of the batch
+            live = b0 + u < L
+            x[u][live] = vals[off[:-1][live] + b0 + u]
+        for u in range(batch):                 # then the adds, in row order
+            live = (b0 + u < L)[:, None]
+            acc = np.where(live, acc + x[u], acc)
+    return acc, batches
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("D,dtype", [(3, np.float32), (18, np.float32),
+                                     (3, np.float64), (18, np.float64)])
+@pytest.mark.parametrize("layout,S", [("landmarks", 3000), ("frames", 1001),
+                                      ("gaps", 900), ("long", 400)])
+def test_csr_walk_is_the_cpu_twin(layout, S, D, dtype, batch):
+    """The CSR kernel's batched walk (mirrored in numpy) on ``bounds_l`` /
+    ``bounds_f``-shaped offsets, with empty segments and one segment many
+    batches long, at both batches the kernel is built for: the CPU twin's
+    bits, so the card must give them too; ``csr_batch`` batches only narrow
+    rows of short segments, and ``csr_threads``' grid gives every output
+    one thread, with at least ``CSR_MIN_BLOCKS`` blocks where the smallest
+    block size allows."""
+    off = _csr_layout(layout, S, seed=S + D)
+    ids = np.repeat(np.arange(S), np.diff(off))
+    vals = np.random.default_rng(D).normal(size=(len(ids), D)).astype(dtype)
+    got, batches = _csr_walk(vals, off, batch)
+    ref = ss.sorted_segment_sum(torch.tensor(vals), torch.tensor(ids), S)
+    assert np.array_equal(got, ref.numpy())
+    if layout == "long":
+        assert batches >= 5000 // batch
+    threads = ss.csr_threads(S, D)
+    assert threads in ss.CSR_THREADS
+    assert ss.csr_batch(len(ids), S, D) == (
+        ss.CSR_BATCH if D <= ss.CSR_NARROW_D and len(ids) <= ss.CSR_SHORT * S
+        else 1)
+    blocks = -(-S * D // threads)
+    assert (blocks - 1) * threads < S * D <= blocks * threads
+    assert blocks >= min(ss.CSR_MIN_BLOCKS, -(-S * D // ss.CSR_THREADS[-1]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [3, 6, 9, 18])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -318,9 +480,39 @@ def test_segsum_kernel_matches_twin_on_card(dtype, D, cuda_device):
     torch.cuda.synchronize()
     assert ss.sorted_segment_sum.launches == n0 + 2
     assert torch.equal(a, b)                      # same bits every run
+    assert torch.equal(a.cpu(), ref)              # the CPU twin's bits
     assert int((a[ref.abs().sum(1) == 0] != 0).sum()) == 0   # empty segments
     np.testing.assert_allclose(a.cpu().numpy(), ref.numpy(),
                                atol=_seg_tol(dtype, vals, ids, 2500), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("layout,S", [("landmarks", 3000), ("frames", 1001),
+                                      ("gaps", 900), ("long", 400)])
+@pytest.mark.parametrize("D", [3, 18])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segsum_kernel_layouts_on_card(dtype, D, layout, S, unaligned,
+                                       cuda_device):
+    """Segments longer than a chunk, empty segments, the operator's two
+    orderings, and values that do not start on a 16-byte boundary (a view
+    one row into its storage): the CPU twin's bits, twice."""
+    off = _csr_layout(layout, S, seed=S + D)
+    ids = np.repeat(np.arange(S), np.diff(off)).astype(np.int32)
+    rng = np.random.default_rng(D)
+    full = rng.normal(size=(len(ids) + 1, D)).astype(dtype)
+    vals = full[1:] if unaligned else full[:-1]
+    ref = ss.sorted_segment_sum(torch.tensor(vals), torch.tensor(ids), S)
+    v = torch.tensor(full, device=cuda_device)
+    v = v[1:] if unaligned else v[:-1]
+    assert (v.data_ptr() % 16 != 0) == (unaligned and D * vals.itemsize % 16
+                                        != 0)
+    o = torch.tensor(off, dtype=torch.int32, device=cuda_device)
+    i = torch.tensor(ids, device=cuda_device)
+    a = ss.sorted_segment_sum(v, i, S, offsets=o)
+    b = ss.sorted_segment_sum(v, i, S, offsets=o)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
 
 
 def _layout_ids(layout, E, S, sb, seed):

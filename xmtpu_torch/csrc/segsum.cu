@@ -8,17 +8,30 @@
 //   chunk into a one-hot band matmul accumulated in VMEM; Hopper blocks run
 //   in no order, so that carry does not translate.  Here the segment
 //   boundaries come as CSR offsets (S+1,) computed once from the sorted ids
-//   (SchurQ's bounds_l / bounds_f), and every output element (s, d) is owned
-//   by one thread that sums its segment's rows of column d in row order:
-//   no float atomics, no dependence on the band bound, the same bits on
-//   every run.
+//   (SchurQ's bounds_l / bounds_f).
 //   Bound on the H100: bytes.  Each input element is read once and each
 //   output written once; the arithmetic is one add per input element.  At
-//   the implicit operator's sizes (E = 270k rows, D = 3..18) the pass moves
-//   a few MB — microseconds of HBM time — so in practice it is bound by its
-//   launch and by the longest segment a thread walks.  Neighbouring threads
-//   own neighbouring columns of one segment, then the next segment's, so a
-//   warp's loads fall on neighbouring rows of the row-major array.
+//   the implicit operator's sizes (E = 270k rows, D = 3..18, inputs that sit
+//   in L2) that is about a microsecond, so in practice it is bound by its
+//   launch and by the latency of its dependent loads.  The main path
+//   launches it most at f32 D=3 on short segments (11 rows a landmark, 44 a
+//   frame).  A thread that walks its segment's rows a load (or an
+//   unrolled few) at a time waits that many round trips to L2, and the
+//   launch waits for its longest segment.
+//   Design: one thread per output element (s, d) adds its segment's rows of
+//   column d in row order from zero — the order of index_add_ on the host,
+//   so the bits are the CPU twin's, on every run, with no atomics.  Blocks
+//   of ops/segsum.py csr_threads (64-256 threads, from S*D) give every SM
+//   blocks: the frame ordering's 18k outputs made 256-thread blocks
+//   72 for 132 SMs.  On rows of at most 3 values in segments of at most 16
+//   rows on average (csr_batch), a thread loads BATCH = 16 rows, every
+//   load issued before the first add, so a segment waits one round trip
+//   where the row-by-row loop waited several; elsewhere BATCH = 1, the
+//   row-by-row loop the compiler unrolls, measured faster there (wider rows
+//   already coalesce across d).  Two designs that stage whole segments in
+//   shared memory — a block's tile read coalesced in 8 KB chunks, and a
+//   warp's ~32/D segments read coalesced into its own chunk —
+//   measured slower at every held shape (PERF.md).
 //
 // blocked_sum replaces xmtpu/ops/pallas_segsum.py::_kernel_blocked (via
 // sorted_segment_sum_blocked): the same sum on the scheduled layout of
@@ -56,26 +69,39 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int CSR_MAX_THREADS = 256;
 
-// sum of rows [r0, r1) of column d of the row-major (rows, D) array, in
-// row order
-template <typename T>
-__device__ __forceinline__ T run_sum(const T* __restrict__ vals, int D, int d,
-                                     int64_t r0, int64_t r1) {
-  T acc = T(0);
-  for (int64_t r = r0; r < r1; ++r) acc = acc + __ldg(vals + r * D + d);
-  return acc;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Thread (s, d) of sorted_segment_sum: out[s, d] = the rows [off[s],
+// off[s+1]) of column d added in row order from zero.  The rows are loaded
+// BATCH at a time, every load of a batch issued before the first add, so a
+// segment of L rows waits ceil(L / BATCH) round trips instead of one per
+// row (or per unrolled few).
+template <typename T, int BATCH>
+__global__ void __launch_bounds__(CSR_MAX_THREADS)
 segsum_csr(const T* __restrict__ vals, const int* __restrict__ offsets,
            T* __restrict__ out, int S, int D) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
   if (t >= static_cast<int64_t>(S) * D) return;
-  int s = static_cast<int>(t / D), d = static_cast<int>(t % D);
-  out[t] = run_sum(vals, D, d, __ldg(offsets + s), __ldg(offsets + s + 1));
+  const int s = static_cast<int>(t / D), d = static_cast<int>(t - s * D);
+  const int r0 = __ldg(offsets + s), r1 = __ldg(offsets + s + 1);
+  const T* p = vals + static_cast<int64_t>(r0) * D + d;
+  const int64_t stride = D;
+  T acc = T(0);
+  for (int r = r0; r < r1; r += BATCH, p += BATCH * stride) {
+    T x[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      x[u] = r + u < r1 ? __ldg(p + u * stride) : T(0);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      if (r + u < r1) acc = acc + x[u];
+  }
+  out[t] = acc;
 }
+
+// An empty kernel: the launch floor of a grid (timed by chip_profile.py).
+__global__ void floor_kernel() {}
 
 // Cooperative search by the whole thread block, for K keys at once: the
 // first index r in [0, n) with key_at(r) >= keys[k] (n if none), where
@@ -210,17 +236,27 @@ blocked_sum(const T* __restrict__ vals, const int* __restrict__ ids,
   }
 }
 
-int grid_for(int64_t n) {
-  return static_cast<int>((n + THREADS - 1) / THREADS);
+template <typename T, int BATCH>
+int launch_csr_b(const T* vals, const int* offsets, T* out, int S, int D,
+                 int threads, cudaStream_t s) {
+  const int64_t outs = static_cast<int64_t>(S) * D;
+  segsum_csr<T, BATCH>
+      <<<static_cast<unsigned>((outs + threads - 1) / threads), threads, 0,
+         s>>>(vals, offsets, out, S, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_csr(const T* vals, const int* offsets, T* out, int S, int D,
-               cudaStream_t s) {
-  int64_t n = static_cast<int64_t>(S) * D;
-  if (n == 0) return 0;
-  segsum_csr<T><<<grid_for(n), THREADS, 0, s>>>(vals, offsets, out, S, D);
-  return static_cast<int>(cudaGetLastError());
+               int threads, int batch, cudaStream_t s) {
+  if (static_cast<int64_t>(S) * D == 0) return 0;
+  if (threads < 32 || threads % 32 != 0 || threads > CSR_MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 1)
+    return launch_csr_b<T, 1>(vals, offsets, out, S, D, threads, s);
+  if (batch == 16)
+    return launch_csr_b<T, 16>(vals, offsets, out, S, D, threads, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -244,15 +280,22 @@ extern "C" {
 
 // Each returns the cudaError_t of its launches (0 on success).
 int xm_segsum_f32(const float* vals, const int* offsets, float* out, int S,
-                  int D, void* stream) {
-  return launch_csr<float>(vals, offsets, out, S, D,
+                  int D, int threads, int batch, void* stream) {
+  return launch_csr<float>(vals, offsets, out, S, D, threads, batch,
                            static_cast<cudaStream_t>(stream));
 }
 
 int xm_segsum_f64(const double* vals, const int* offsets, double* out, int S,
-                  int D, void* stream) {
-  return launch_csr<double>(vals, offsets, out, S, D,
+                  int D, int threads, int batch, void* stream) {
+  return launch_csr<double>(vals, offsets, out, S, D, threads, batch,
                             static_cast<cudaStream_t>(stream));
+}
+
+// An empty launch of `blocks` x `threads` with `smem` bytes of dynamic
+// shared memory (at most 48 KB): the floor under a segment sum's time.
+int xm_segsum_floor(int blocks, int threads, int smem, void* stream) {
+  floor_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 int xm_segsum_blocked_f32(const float* vals, const int* ids, float* out,

@@ -1,21 +1,31 @@
-"""Fused Steihaug-tCG inner iteration: hand-written CUDA kernels + plain twins.
+"""Fused Steihaug-tCG inner iteration: a hand-written CUDA kernel + plain twins.
 
-Counterpart of ``xmtpu/ops/pallas_tcg.py``.  Two kernels in
-``xmtpu_torch/csrc/fused_tcg.cu``, each with a plain PyTorch version of the
-same function in this module:
+Counterpart of ``xmtpu/ops/pallas_tcg.py``.  One kernel template in
+``xmtpu_torch/csrc/fused_tcg.cu``, launched in two variants, each with a plain
+PyTorch version of the same function in this module:
 
 * ``tcg_step`` replaces ``pallas_tcg._tcg_kernel`` (body ``_tcg_body``): one
   whole preconditioned Steihaug-tCG inner iteration except the operator
-  product, in one launch spread over a thread-block cluster whose geometry
+  product.  On the H100 it is bound by latency, not bytes (three phases of
+  dependent loads around two reductions over every camera), so it is one
+  launch spread over a thread-block cluster whose geometry
   :func:`step_geometry` gives (one block up to ``CAMS_PER_BLOCK`` cameras,
-  then a block per ``CAMS_PER_BLOCK`` cameras up to ``MAX_CLUSTER``).
-* ``tcg_cw_dense`` replaces the in-kernel GEMM of
-  ``pallas_tcg._tcg_kernel_dense``: ``CW = 2 C W`` with
-  ``W = pR .* s_ex + R .* ps`` on the row-major f32 ``C``.  The dense
-  variant is then two launches per inner iteration.
+  then a block per ``CAMS_PER_BLOCK`` cameras up to ``MAX_CLUSTER``), the
+  reductions exchanged through distributed shared memory in block order.
+* ``tcg_step_dense`` replaces ``pallas_tcg._tcg_kernel_dense``: the same
+  iteration with ``CW = 2 C W`` (``W = pR .* s_ex + R .* ps``, the row-major
+  f32 ``C``, n <= ``DENSE_MAX_N``) computed inside the same launch, as the
+  TPU kernel did, so the dense variant is one launch per inner iteration.
+  The product is bound by the rate at which the launch's SMs pull ``C``
+  (L2-resident across the loop) into registers; :func:`dense_geometry`
+  gives it more blocks than the iteration body needs (a block per
+  ``DENSE_CAMS_PER_BLOCK`` cameras, up to one cluster), each block
+  streaming the contiguous rows of ``C`` of its own cameras with 16-byte
+  loads, the next item in flight while it adds the last, against ``W`` in
+  shared memory, and each warp summing its lanes in lane order.
 
-Above the dense gate (n > 512) the product stays a ``torch.matmul``, as the
-reference leaves it to XLA outside its kernel.
+Above the dense gate the product stays a ``torch.matmul``, as the reference
+leaves it to XLA outside its kernel.
 
 Layout: camera-lane-major.  A block array ``X (n, 3, o)`` is stored as
 ``Xt (3o, n)`` with ``Xt[k*o+j, i] = X[i, k, j]``; scale-channel arrays are
@@ -46,7 +56,7 @@ ER_NEGCURV, ER_BOUNDARY, ER_SUPERLINEAR = 1, 2, 3
 ER_SMALL_RDOTR, ER_MAX_INNER = 5, 6
 
 # largest n for which the dense variant folds the operator product into
-# tcg_cw_dense (the reference's Np <= 512 gate)
+# tcg_step_dense (the reference's Np <= 512 gate)
 DENSE_MAX_N = 512
 # largest rank the kernels are instantiated for (csrc/fused_tcg.cu MAXO)
 MAX_RANK = 32
@@ -57,6 +67,17 @@ FLAG_EVERY = 4
 # the launch grows by a block, and the most blocks of one launch (a cluster)
 CAMS_PER_BLOCK = 128
 MAX_CLUSTER = 16
+# tcg_step_dense launch geometry (see dense_geometry): cameras a block takes
+# before the launch grows by a block, and its threads (phase 0 streams C
+# with every warp; threads without a camera add zeros to the reductions)
+DENSE_CAMS_PER_BLOCK = 8
+DENSE_THREADS = 256
+# shared memory a tcg_step_dense block may take: the H100's 232,448 bytes a
+# block, less the kernel's static arrays (800 bytes) and a margin
+DENSE_SMEM_MAX = 232448 - 1024
+# floats of a warp's reduction scratch in tcg_step_dense (csrc/fused_tcg.cu
+# DENSE_RED_FLOATS)
+DENSE_RED_FLOATS = 16 * 33
 
 
 # ---------------------------------------------------------------- layout --
@@ -94,8 +115,9 @@ def _stopped(sc: torch.Tensor, max_inner: int) -> bool:
 
 
 def tcg_cw_dense_plain(C, Rt, s_ex_t, pR, ps, sc, CWt, max_inner: int):
-    """Plain twin of the ``tcg_cw_dense`` kernel: writes ``CWt = 2 C W`` in
-    the (3o, n) layout unless the carry is done."""
+    """The product of the dense variant: writes ``CWt = 2 C W``,
+    ``W = pR .* s_ex + R .* ps``, in the (3o, n) layout unless the carry is
+    done."""
     if _stopped(sc, max_inner):
         return
     three_o, n = Rt.shape
@@ -195,13 +217,26 @@ def tcg_step_plain(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
                           dtype=torch.float32, device=sc.device))
 
 
+def tcg_step_dense_plain(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt,
+                         minvRt, inv_ms, CWt, vR, vs, rR, rs, pR, ps, hvR,
+                         hvs, sc, cfg, max_inner: int):
+    """Plain twin of the ``tcg_step_dense`` kernel: :func:`tcg_cw_dense_plain`
+    (the product into ``CWt``) followed by :func:`tcg_step_plain`."""
+    tcg_cw_dense_plain(C, Rt, s_ex_t, pR, ps, sc, CWt, max_inner)
+    tcg_step_plain(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
+                   inv_ms, CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg,
+                   max_inner)
+
+
 # ------------------------------------------------------------ geometry --
 
-def max_threads(o: int) -> int:
+def max_threads(o: int, dense: bool = False) -> int:
     """Most threads of one ``tcg_step`` block at rank ``o``: the kernel's
     ``__launch_bounds__`` for its ``MAXO`` instantiation (4, 8 -> 512;
-    16, 32 -> 256), which leaves a thread 128 or 255 registers."""
-    return 512 if o <= 8 else 256
+    16, 32 -> 256), which leaves a thread 128 or 255 registers; 256 at
+    every rank for ``tcg_step_dense`` (255 registers: its product and
+    phase 2 keep their loads in registers)."""
+    return 256 if dense or o > 8 else 512
 
 
 def step_geometry(n: int, o: int) -> "tuple[int, int]":
@@ -214,6 +249,39 @@ def step_geometry(n: int, o: int) -> "tuple[int, int]":
     need no cross-block barrier."""
     blocks = min(MAX_CLUSTER, -(-n // CAMS_PER_BLOCK))
     threads = min(max_threads(o), 32 * -(-n // (32 * blocks)))
+    return blocks, threads
+
+
+def dense_smem_bytes(n: int, o: int, blocks: int, threads: int) -> int:
+    """Shared memory of one ``tcg_step_dense`` block: ``W`` (o columns of
+    3n floats, padded to a multiple of 4), the block's ``CW`` (3o rows of
+    ``ceil(n / blocks)`` cameras) and each warp's reduction scratch (16
+    rows of 33 floats), as ``csrc/fused_tcg.cu`` ``dense_smem_floats``
+    computes it."""
+    cpb = -(-n // blocks)
+    return 4 * (o * (-(-3 * n // 4) * 4) + 3 * o * cpb
+                + threads // 32 * DENSE_RED_FLOATS)
+
+
+def dense_geometry(n: int, o: int) -> "tuple[int, int]":
+    """``(blocks, threads)`` of one ``tcg_step_dense`` launch at ``n``
+    cameras: a block per ``DENSE_CAMS_PER_BLOCK`` cameras up to one cluster
+    of ``MAX_CLUSTER``, cut so that no block is empty; block ``b`` owns the
+    contiguous cameras ``[b*cpb, (b+1)*cpb)``, ``cpb = ceil(n / blocks)``,
+    in every phase, and its ``3*cpb`` rows of ``C``.  Threads:
+    ``DENSE_THREADS`` within :func:`max_threads` ``(o, dense=True)``, and at
+    least one a camera.
+    Raises ``ValueError`` where a block's shared memory (:func:`dense_smem_bytes`)
+    would pass ``DENSE_SMEM_MAX``."""
+    blocks = min(MAX_CLUSTER, -(-n // DENSE_CAMS_PER_BLOCK))
+    cpb = -(-n // blocks)
+    blocks = -(-n // cpb)
+    threads = min(max_threads(o, dense=True),
+                  max(DENSE_THREADS, 32 * -(-cpb // 32)))
+    smem = dense_smem_bytes(n, o, blocks, threads)
+    if smem > DENSE_SMEM_MAX:
+        raise ValueError(f"tcg_step_dense: n={n}, o={o} needs {smem} bytes of "
+                         f"shared memory a block, above {DENSE_SMEM_MAX}")
     return blocks, threads
 
 
@@ -230,8 +298,8 @@ def _lib():
     if not getattr(lib, "_xm_typed", False):
         lib.xm_tcg_step.argtypes = [_P] * 21 + [_I] * 5 + [_P]
         lib.xm_tcg_step.restype = _I
-        lib.xm_tcg_cw_dense.argtypes = [_P] * 7 + [_I, _I, _I, _P]
-        lib.xm_tcg_cw_dense.restype = _I
+        lib.xm_tcg_step_dense.argtypes = [_P] * 22 + [_I] * 5 + [_P]
+        lib.xm_tcg_step_dense.restype = _I
         lib._xm_typed = True
     return lib
 
@@ -258,6 +326,33 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+_STEP_NAMES = ("Rt", "s_ex_t", "sfree", "inv_s2", "egs_t", "Segrt", "CsRt",
+               "minvRt", "inv_ms", "CWt", "vR", "vs", "rR", "rs", "pR", "ps",
+               "hvR", "hvs", "sc", "cfg")
+
+
+def _step_ptrs(what: str, args, work):
+    """Checked pointers of the twenty ``tcg_step`` arguments and ``work``
+    (allocated when None), with ``(n, o, device)``."""
+    Rt = args[0]
+    three_o, n = Rt.shape
+    o = three_o // 3
+    if o < 1 or o > MAX_RANK or three_o != 3 * o:
+        raise ValueError(f"{what}: rank {three_o / 3} outside 1..{MAX_RANK}")
+    dev = Rt.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if work is None:
+        work = torch.empty(((6 * o + 1), n), dtype=torch.float32, device=dev)
+    blk, row = (three_o, n), (n,)
+    shapes = (blk, row, row, row, row, (9, n), blk, (9, n), row, blk,
+              blk, row, blk, row, blk, row, blk, row, (NS,), (NC,))
+    ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(_STEP_NAMES, args,
+                                                         shapes)]
+    ptrs.append(_check("work", work, ((6 * o + 1), n), dev))
+    return ptrs, n, o, dev
+
+
 def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
              CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, max_inner: int,
              work=None):
@@ -270,23 +365,7 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
     if _on_cpu(*args):
         tcg_step_plain(*args, max_inner)
         return
-    three_o, n = Rt.shape
-    o = three_o // 3
-    if o < 1 or o > MAX_RANK or three_o != 3 * o:
-        raise ValueError(f"tcg_step: rank {three_o / 3} outside 1..{MAX_RANK}")
-    dev = Rt.device
-    if dev.type != "cuda":
-        raise ValueError(f"tcg_step: unsupported device {dev}")
-    if work is None:
-        work = torch.empty(((6 * o + 1), n), dtype=torch.float32, device=dev)
-    blk, row = (three_o, n), (n,)
-    shapes = (blk, row, row, row, row, (9, n), blk, (9, n), row, blk,
-              blk, row, blk, row, blk, row, blk, row, (NS,), (NC,))
-    names = ("Rt", "s_ex_t", "sfree", "inv_s2", "egs_t", "Segrt", "CsRt",
-             "minvRt", "inv_ms", "CWt", "vR", "vs", "rR", "rs", "pR", "ps",
-             "hvR", "hvs", "sc", "cfg")
-    ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(names, args, shapes)]
-    ptrs.append(_check("work", work, ((6 * o + 1), n), dev))
+    ptrs, n, o, dev = _step_ptrs("tcg_step", args, work)
     blocks, threads = step_geometry(n, o)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
@@ -298,32 +377,29 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
 tcg_step.launches = 0
 
 
-def tcg_cw_dense(C, Rt, s_ex_t, pR, ps, sc, CWt, max_inner: int):
-    """``CWt = 2 C W``, ``W = pR .* s_ex + R .* ps`` (see
-    :func:`tcg_cw_dense_plain`); ``C`` is the row-major f32 (3n, 3n)."""
-    args = (C, Rt, s_ex_t, pR, ps, sc, CWt)
-    if _on_cpu(*args):
-        tcg_cw_dense_plain(*args, max_inner)
+def tcg_step_dense(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
+                   inv_ms, CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg,
+                   max_inner: int, work=None):
+    """One fused inner iteration of the dense variant, the product
+    ``CW = 2 C W`` included (see :func:`tcg_step_dense_plain`; ``CWt``
+    receives it), launched at :func:`dense_geometry` ``(n, o)``.  ``C`` is
+    the row-major f32 (3n, 3n)."""
+    args = (Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
+            CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg)
+    if _on_cpu(C, *args):
+        tcg_step_dense_plain(C, *args, max_inner)
         return
-    three_o, n = Rt.shape
-    o = three_o // 3
-    if o < 1 or o > MAX_RANK or three_o != 3 * o:
-        raise ValueError(
-            f"tcg_cw_dense: rank {three_o / 3} outside 1..{MAX_RANK}")
-    dev = Rt.device
-    if dev.type != "cuda":
-        raise ValueError(f"tcg_cw_dense: unsupported device {dev}")
-    blk = (three_o, n)
-    shapes = ((3 * n, 3 * n), blk, (n,), blk, (n,), (NS,), blk)
-    names = ("C", "Rt", "s_ex_t", "pR", "ps", "sc", "CWt")
-    ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(names, args, shapes)]
+    ptrs, n, o, dev = _step_ptrs("tcg_step_dense", args, work)
+    c_ptr = _check("C", C, (3 * n, 3 * n), dev)
+    blocks, threads = dense_geometry(n, o)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().xm_tcg_cw_dense(*ptrs, n, o, int(max_inner), stream)
-    _raise_on(rc, "tcg_cw_dense")
-    tcg_cw_dense.launches += 1
+    rc = _lib().xm_tcg_step_dense(c_ptr, *ptrs, n, o, int(max_inner), blocks,
+                                  threads, stream)
+    _raise_on(rc, "tcg_step_dense")
+    tcg_step_dense.launches += 1
 
 
-tcg_cw_dense.launches = 0
+tcg_step_dense.launches = 0
 
 
 # ----------------------------------------------------------- the loop --
@@ -400,11 +476,12 @@ def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
     while True:
         for _ in range(FLAG_EVERY):
             if C32 is not None:
-                tcg_cw_dense(C32, Rt, s_ex_t, pR, ps, sc, CWt, max_inner)
-            else:
-                # the split variant: the product outside the kernel
-                W = mf.flatten(from_t(pR * s_ex_t + Rt * ps, n, o))
-                CWt.copy_(to_t(mf.unflatten(2.0 * qmul(W))))
+                # the dense variant: one launch, the product inside
+                tcg_step_dense(C32, *step_args, max_inner, work=work)
+                continue
+            # the split variant: the product outside the kernel
+            W = mf.flatten(from_t(pR * s_ex_t + Rt * ps, n, o))
+            CWt.copy_(to_t(mf.unflatten(2.0 * qmul(W))))
             tcg_step(*step_args, max_inner, work=work)
         carry = sc.tolist()
         if carry[S_DONE] != 0.0 or carry[S_I] >= max_inner:

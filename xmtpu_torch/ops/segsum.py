@@ -6,8 +6,12 @@ sums over edges kept sorted by segment.  Two kernels in
 ``xmtpu_torch/csrc/segsum.cu``:
 
 * ``sorted_segment_sum`` replaces ``pallas_segsum._kernel``: a segmented
-  reduction over CSR offsets, one thread per output element summing its
-  segment's rows in row order (no float atomics, same bits every run).
+  reduction over CSR offsets.  Each output element's thread adds its
+  segment's rows in row order (no float atomics, the bits of the CPU twin,
+  the same bits every run); :func:`csr_threads` sizes the blocks so that
+  every SM gets some, and on narrow rows of short segments
+  (:func:`csr_batch`) a thread loads ``CSR_BATCH`` rows before it adds
+  any.
 * ``sorted_segment_sum_blocked`` replaces ``pallas_segsum._kernel_blocked``:
   the same sum on the scheduled layout of :func:`plan_blocks` /
   :func:`schedule_edges`, in one pass: each thread block finds its tile of
@@ -36,6 +40,16 @@ from xmtpu_torch.ops.fused_tcg import _check, _on_cpu, _raise_on
 CHUNK = 512
 SEG_BLOCK = 2048
 
+# sorted_segment_sum's launch geometry (see csr_threads, csr_batch): the
+# block sizes it may take, largest first, the fewest blocks worth keeping
+# (two for each of the H100's 132 SMs), and the rows a thread loads before
+# it adds any on narrow rows of short segments (csrc/segsum.cu instantiates
+# 1 and 16), with the bounds of "narrow" and "short"
+CSR_THREADS = (256, 128, 64)
+CSR_MIN_BLOCKS = 264
+CSR_BATCH = 16
+CSR_NARROW_D = 3
+CSR_SHORT = 16
 
 def max_band(seg_ids: np.ndarray, chunk: int = CHUNK) -> int:
     """Largest number of distinct segments spanned by any length-``chunk``
@@ -116,6 +130,26 @@ def segment_offsets(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(ids, keys).to(torch.int32)
 
 
+def csr_threads(S: int, D: int) -> int:
+    """Threads of a ``sorted_segment_sum`` block at ``S * D`` outputs (one
+    thread each): the largest of ``CSR_THREADS`` that still makes
+    ``CSR_MIN_BLOCKS`` blocks, else the smallest."""
+    outs = S * D
+    return next((t for t in CSR_THREADS if -(-outs // t) >= CSR_MIN_BLOCKS),
+                CSR_THREADS[-1])
+
+
+def csr_batch(E: int, S: int, D: int) -> int:
+    """Rows a ``sorted_segment_sum`` thread loads before it adds any:
+    ``CSR_BATCH`` on rows of at most ``CSR_NARROW_D`` values in segments of
+    at most ``CSR_SHORT`` rows on average (``E / S``: a host integer, no
+    sync), where a warp's loads spread over ~32/D segments and the launch
+    waits for its longest chain of round trips; else 1, the row-by-row loop
+    the compiler unrolls (measured faster on wider rows, which coalesce
+    across d, and on longer segments)."""
+    return CSR_BATCH if D <= CSR_NARROW_D and E <= CSR_SHORT * S else 1
+
+
 # ------------------------------------------------------ plain version --
 
 def sorted_segment_sum_plain(vals: torch.Tensor, seg_ids: torch.Tensor,
@@ -141,8 +175,10 @@ def _lib():
     if not getattr(lib, "_xm_typed", False):
         for name in ("xm_segsum_f32", "xm_segsum_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P, _P, _P, _I, _I, _P]
+            fn.argtypes = [_P] * 3 + [_I] * 4 + [_P]
             fn.restype = _I
+        lib.xm_segsum_floor.argtypes = [_I] * 3 + [_P]
+        lib.xm_segsum_floor.restype = _I
         for name in ("xm_segsum_blocked_f32", "xm_segsum_blocked_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 3 + [_I] * 5 + [_P]
@@ -167,9 +203,11 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
     """Segment sum over sorted ``seg_ids``: ``(S, D)`` from ``vals (E, D)``.
 
     ``offsets``: the ``(S+1,)`` int32 CSR offsets of ``seg_ids`` (computed
-    here when absent); the CUDA kernel reads them instead of the ids.
-    ``band`` is the reference kernel's bound (:func:`max_band`); neither
-    version needs it.
+    here when absent); the CUDA kernel reads them instead of the ids, one
+    thread an output, :func:`csr_threads` a block, :func:`csr_batch` rows
+    in flight a thread.  ``band`` is the reference kernel's bound
+    (:func:`max_band`); neither version needs it.  Each launch is counted
+    in ``launches`` and, by ``"f32 D=3"``-style keys, in ``shapes``.
     """
     if _on_cpu(vals, seg_ids):
         return sorted_segment_sum_plain(vals, seg_ids, num_segments)
@@ -185,13 +223,18 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
             _check("offsets", offsets, (num_segments + 1,), dev, torch.int32),
             _check("out", out, (num_segments, D), dev, vals.dtype)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_lib(), f"xm_segsum_{sfx}")(*ptrs, num_segments, D, stream)
+    rc = getattr(_lib(), f"xm_segsum_{sfx}")(
+        *ptrs, num_segments, D, csr_threads(num_segments, D),
+        csr_batch(E, num_segments, D), stream)
     _raise_on(rc, "sorted_segment_sum")
     sorted_segment_sum.launches += 1
+    key = f"{sfx} D={D}"
+    sorted_segment_sum.shapes[key] = sorted_segment_sum.shapes.get(key, 0) + 1
     return out
 
 
 sorted_segment_sum.launches = 0
+sorted_segment_sum.shapes = {}
 
 
 def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
