@@ -42,7 +42,19 @@ Phases (any failure exits non-zero; no phase is caught):
    device time inside the solve (``solve_ms``);
 8. ``xm2_solve(implicit=True)`` on scene B: its phases, and rotation errors
    no worse than 1.5x the reference's;
-9. print the kernels' JSON line, the card's name and power limit, and the
+9. scene D (200 frames on a loop in a room, matched exhaustively, 5 % of
+   the pairs corrupted; ``make_scene_d``) written as a COLMAP database:
+   ``python -m xmtpu_torch mapper`` twice through ``__main__.main`` (equal
+   tempdata files; images, valid pairs, tracks and observations equal to
+   the JAX package's; every corrupted pair dropped, no clean one; ``R_rel``
+   within 1e-4 of GT), the launches and host reads of one ``filter_pairs``
+   call, lifting with GT depth, ``xm2_solve`` at its defaults (dense) and
+   implicit (``sorted_segment_sum`` launched), each certified at the JAX
+   package's rank within 5e-3 of its primal and 1.5x its rotation errors,
+   the implicit route at its default tol printed beside the JAX package's,
+   and ``calibrate_view_graph`` within 1 % of the focal and 1e-6 of the JAX
+   package's; per-stage seconds and the device memory peak;
+10. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 A kernel's ``ms`` is its time on the card per launch (profiler durations);
@@ -54,7 +66,7 @@ HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
 card's time for ``torch.matmul`` on the same W (the dense variant's
 product) or for one ``index_add_`` on the same tensors (segment sums, whose
 plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
-its counter over the main-path runs of phases 3, 4, 6, 7 and 8, each read
+its counter over the main-path runs of phases 3, 4, 6, 7, 8 and 9, each read
 just after its run with the counters set to 0 just before; the segment
 sum's launches are also counted by dtype and D (its ``shapes``), and its
 row on the ``kernels`` line shows the most launched shape, f32 D=3 on the
@@ -68,6 +80,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -118,6 +131,48 @@ LONG_A, LONG_B = 85, 56
 # --kernels, H100)
 LONG_C = 104
 LONG_C_ITERS = 10  # the fewest inner iterations the case must run
+
+# scene D, a Replica-scale sequence matched exhaustively (the reference
+# driver's pycolmap.match_exhaustive; Replica room sequences): a closed loop
+# of frames in a room, a two-view geometry for every pair that shares enough
+# points, 5 % of them corrupted; the mapper, lifting with GT depth and XM^2
+SCENE_D = dict(n_frames=200, n_points=8000, seed=0)
+SCENE_D_ROOM = (10.0, 8.0, 3.0)       # x, y, z extent (m), floor at z = 0
+SCENE_D_LOOP = dict(rx=2.5, ry=2.0, height=1.5, sway=0.6, sway_cycles=3)
+# the Replica camera: SIMPLE_PINHOLE 1200 x 680, prior focal kept
+SCENE_D_CAMERA = dict(width=1200, height=680, f=600.0, cx=599.5, cy=339.5)
+SCENE_D_MIN_SHARED = 50               # points a pair shares to be stored
+SCENE_D_PIXEL_NOISE = 0.5             # keypoint noise (px)
+SCENE_D_BAD = dict(share=0.05, deg=(20.0, 40.0))  # corrupted relative poses
+# reference values: the JAX package on the CPU at commit 872ab1b, same
+# generator and seed.  ``python -m xmtpu mapper --database_path D
+# --output_path T`` on write_scene_d's database: images with observations in
+# output.txt, lines of relative_pose.txt, tracks, observations
+MAPPER_D = dict(registered=200, valid_pairs=7950, n_tracks=7381,
+                n_obs=297217)
+# then parse_glomap_tempdata(T) -> build_view_graph -> lift_dataset(GT depth
+# of scene_d_depth) -> xm2_solve(..., verbose=False, **XM2_D_ARGS[route]):
+# the last staircase solve's certified rank and primal, and the rotation
+# errors of the result against GT.  The implicit route is held at tol=1e-4,
+# where its stages run in f64: at the default tol=1e-1 (and at 1e-3) the f32
+# and two-float stages stop at their noise floor, where the libraries'
+# orders part, and on scene D that flips the rank-3 probe's scale test
+# (|s_avg - 1| vs 2 std at std 1.5e-4), hence lam, rank and primal; the
+# port's default-tol run is printed beside XM2_D_DEFAULT, not held
+XM2_D_ARGS = dict(dense={}, implicit=dict(implicit=True, tol=1e-4))
+XM2_D = dict(
+    dense=dict(rank=4, primal=6.66350697353551,
+               rot=dict(max=0.0009281971801524574,
+                        mean=0.0005249496173795711)),
+    implicit=dict(rank=4, primal=6.663506976056988,
+                  rot=dict(max=0.0009281347632745869,
+                           mean=0.0005249035385708607)))
+XM2_D_DEFAULT = dict(rank=3, primal=6.665356859005428, lam=0.0,
+                     rot=dict(max=0.0013050636879244804,
+                              mean=0.0007242564219372327))
+# calibrate_view_graph(*scene_d_calibration_inputs(scene D),
+# prior_mask=[False]) -> focal
+CALIB_D = 600.0000000000765
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
 # f64 FLOP/s outside the tensor cores
@@ -761,6 +816,400 @@ def scene(params, device):
     return C, t_gen, t_asm
 
 
+class SceneD(NamedTuple):
+    R: np.ndarray            # (N, 3, 3) world-to-camera rotations
+    t: np.ndarray            # (N, 3) world-to-camera translations
+    pts: np.ndarray          # (M, 3) room points
+    K: np.ndarray            # (3, 3)
+    keypoints: list          # N arrays (k_i, 2), f32-representable pixels
+    point_of_kp: list        # N arrays (k_i,) point id of each keypoint
+    pairs: np.ndarray        # (P, 2) frame pairs i < j, sorted
+    matches: list            # P arrays (K_p, 2) keypoint indices
+    E: np.ndarray            # (P, 3, 3) stored essential matrices
+    corrupted: np.ndarray    # (P,) bool: E from a corrupted rotation
+
+
+def _rotvec(w):
+    """Rodrigues of one rotation vector (numpy)."""
+    th = float(np.linalg.norm(w))
+    if th == 0.0:
+        return np.eye(3)
+    k = w / th
+    Kx = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]],
+                   [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(th) * Kx + (1.0 - np.cos(th)) * Kx @ Kx
+
+
+def make_scene_d(n_frames: int = 200, n_points: int = 8000,
+                 seed: int = 0) -> SceneD:
+    """Scene D (numpy only, seeded): ``n_frames`` on a closed elliptic loop
+    heading along it with a yaw sway, ``n_points`` spread over the walls,
+    floor and ceiling of the room by area, the Replica camera, keypoints
+    with ``SCENE_D_PIXEL_NOISE`` px of noise, and for every pair sharing at
+    least ``SCENE_D_MIN_SHARED`` points a ``CALIBRATED`` two-view geometry
+    whose E comes from the GT relative pose, or for a seeded
+    ``SCENE_D_BAD`` share of them from that rotation turned by 20-40
+    degrees."""
+    from xmtpu_torch.pipeline.viewgraph import essential_from_motion
+
+    rng = np.random.default_rng(seed)
+    lp, cam = SCENE_D_LOOP, SCENE_D_CAMERA
+    W, H = cam["width"], cam["height"]
+    K = np.array([[cam["f"], 0.0, cam["cx"]], [0.0, cam["f"], cam["cy"]],
+                  [0.0, 0.0, 1.0]])
+
+    a = 2.0 * np.pi * np.arange(n_frames) / n_frames
+    centers = np.stack([lp["rx"] * np.cos(a), lp["ry"] * np.sin(a),
+                        np.full(n_frames, lp["height"])], axis=1)
+    yaw = (np.arctan2(lp["ry"] * np.cos(a), -lp["rx"] * np.sin(a))
+           + lp["sway"] * np.sin(lp["sway_cycles"] * a))
+    fwd = np.stack([np.cos(yaw), np.sin(yaw), np.zeros(n_frames)], axis=1)
+    down = np.broadcast_to([0.0, 0.0, -1.0], fwd.shape)
+    R = np.stack([np.cross(down, fwd), down, fwd], axis=1)
+    t = -np.einsum("nab,nb->na", R, centers)
+
+    # room surfaces, picked by area: floor, ceiling, walls x = +-X/2,
+    # walls y = +-Y/2
+    X, Y, Z = SCENE_D_ROOM
+    areas = np.array([X * Y, X * Y, Y * Z, Y * Z, X * Z, X * Z])
+    face = rng.choice(6, size=n_points, p=areas / areas.sum())
+    u = rng.random((n_points, 2))
+    lo, ext = np.array([-X / 2, -Y / 2, 0.0]), np.array([X, Y, Z])
+    pts = np.zeros((n_points, 3))
+    for k, (fixed, val, free) in enumerate(
+            [(2, 0.0, (0, 1)), (2, Z, (0, 1)), (0, -X / 2, (1, 2)),
+             (0, X / 2, (1, 2)), (1, -Y / 2, (0, 2)), (1, Y / 2, (0, 2))]):
+        sel = face == k
+        pts[sel, fixed] = val
+        for c, f in enumerate(free):
+            pts[sel, f] = lo[f] + ext[f] * u[sel, c]
+
+    keypoints, point_of_kp = [], []
+    kp_of_point = np.full((n_frames, n_points), -1, dtype=np.int64)
+    for i in range(n_frames):
+        pc = pts @ R[i].T + t[i]
+        front = pc[:, 2] > 0.1
+        uv = (pc[:, :2] / np.where(front, pc[:, 2], 1.0)[:, None]
+              * cam["f"] + [cam["cx"], cam["cy"]])
+        uv = uv + rng.normal(scale=SCENE_D_PIXEL_NOISE, size=uv.shape)
+        # the database keeps f32 keypoints: hold them so from the start
+        uv = uv.astype(np.float32).astype(np.float64)
+        ok = (front & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+              & (uv[:, 1] < H))
+        ids = np.flatnonzero(ok)
+        keypoints.append(uv[ids])
+        point_of_kp.append(ids)
+        kp_of_point[i, ids] = np.arange(len(ids))
+
+    vis = (kp_of_point >= 0).astype(np.float32)
+    shared = vis @ vis.T
+    ii, jj = np.triu_indices(n_frames, k=1)
+    keep = shared[ii, jj] >= SCENE_D_MIN_SHARED
+    pairs = np.stack([ii[keep], jj[keep]], axis=1)
+    P = len(pairs)
+    bad = np.zeros(P, dtype=bool)
+    bad[rng.choice(P, size=int(round(SCENE_D_BAD["share"] * P)),
+                   replace=False)] = True
+    lo_deg, hi_deg = SCENE_D_BAD["deg"]
+    matches, E = [], np.zeros((P, 3, 3))
+    for p, (i, j) in enumerate(pairs):
+        common = np.flatnonzero((kp_of_point[i] >= 0) & (kp_of_point[j] >= 0))
+        matches.append(np.stack([kp_of_point[i, common],
+                                 kp_of_point[j, common]], axis=1))
+        Rij = R[j] @ R[i].T                          # cam2_from_cam1
+        tij = t[j] - Rij @ t[i]
+        if bad[p]:
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+            Rij = _rotvec(axis * np.radians(rng.uniform(lo_deg, hi_deg))) @ Rij
+        E[p] = essential_from_motion(Rij, tij / np.linalg.norm(tij))
+    return SceneD(R, t, pts, K, keypoints, point_of_kp, pairs, matches, E,
+                  bad)
+
+
+def write_scene_d(path: str, sc: SceneD) -> None:
+    """The scene as a COLMAP ``database.db`` (the port's writer): one
+    camera with its prior focal, frames named ``frame%04d.png``."""
+    from xmtpu_torch.pipeline import colmap_db as cdb
+    from xmtpu_torch.pipeline.undistort import Camera
+
+    cam = SCENE_D_CAMERA
+    cameras = {1: Camera(model="SIMPLE_PINHOLE",
+                         params=[cam["f"], cam["cx"], cam["cy"]],
+                         width=cam["width"], height=cam["height"])}
+    N = len(sc.R)
+    images = {i + 1: (f"frame{i:04d}.png", 1) for i in range(N)}
+    kps = {i + 1: sc.keypoints[i] for i in range(N)}
+    tvgs = {(int(i) + 1, int(j) + 1): {"matches": m, "config": cdb.CALIBRATED,
+                                       "E": E}
+            for (i, j), m, E in zip(sc.pairs, sc.matches, sc.E)}
+    cdb.write_database(path, cameras, images, keypoints=kps,
+                       two_view_geometries=tvgs, prior_focal={1: True})
+
+
+def scene_d_depth(sc: SceneD, i: int):
+    """GT depth map of frame ``i``: the true z of each keypoint's point at
+    its truncated pixel, zeros elsewhere; unit confidence."""
+    cam = SCENE_D_CAMERA
+    d = np.zeros((cam["height"], cam["width"]))
+    uv = sc.keypoints[i].astype(int)
+    d[uv[:, 1], uv[:, 0]] = (sc.pts[sc.point_of_kp[i]] @ sc.R[i][2]
+                             + sc.t[i][2])
+    return d, np.ones_like(d)
+
+
+def scene_d_calibration_inputs(sc: SceneD, seed: int = 0):
+    """Inputs of ``calibrate_view_graph`` at scene D's pair count: F of
+    general-position relative poses (a random axis turned by 0.2-0.6 rad, a
+    random translation direction; as ``tests/test_colmap_db.py`` builds
+    them) under scene D's camera, one camera starting at 0.85 f.  The
+    loop's own relative poses turn about the vertical only, so every two
+    optical axes meet and the focal is not observable from them (the JAX
+    package lands at 634.1 instead of 600 on the 24-frame scene).  Returns
+    ``(F, cam0, cam1, principal_points, focals0)``."""
+    from xmtpu_torch.pipeline.calibration import fundamental_from_pose
+
+    rng = np.random.default_rng(seed)
+    P = len(sc.pairs)
+    F = np.zeros((P, 3, 3))
+    for p in range(P):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        Rij = _rotvec(axis * (0.2 + 0.4 * rng.random()))
+        tij = rng.normal(size=3)
+        F[p] = fundamental_from_pose(sc.K, sc.K, Rij, tij / np.linalg.norm(tij))
+    zero = np.zeros(P, dtype=np.int64)
+    return (F, zero, zero, sc.K[None, :2, 2].copy(),
+            np.array([0.85 * SCENE_D_CAMERA["f"]]))
+
+
+def scene_d_report(out, sc: SceneD):
+    """``metrics.evaluate`` of an ``XM2Result`` against scene D's GT (w2c
+    convention, solved frames mapped through ``indices_all``), as the
+    reference's example 03 reports it."""
+    from xmtpu_torch.pipeline import metrics
+
+    R_gt = sc.R.transpose(0, 2, 1)                   # c2w
+    centers = -np.einsum("nba,nb->na", sc.R, sc.t)
+    live = out.indices_all > -1
+    order = out.indices_all[live]
+    R_gt_w2c = np.concatenate([R.T for R in R_gt[live]], axis=1)
+    t_w2c = -np.einsum("nba,nb->na", R_gt[live], centers[live]).T
+    N2 = out.s_real.shape[0]
+    Rb = out.R_real.reshape(3, N2, 3).transpose(1, 0, 2)[order]
+    return metrics.evaluate(Rb.transpose(1, 0, 2).reshape(3, -1),
+                            out.t_est[:, order], R_gt_w2c, t_w2c)
+
+
+def device_work(fn, tries: int = 5):
+    """Runs ``fn`` once under ``torch.profiler``: the kernels it launched
+    on the card, its device-to-host copies, and its scalar reads
+    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor).  A
+    traced run with no kernel or no copy recorded (the profiler now and
+    then drops a run's events) is taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
+        kernels = sum(not n.startswith(("Memcpy", "Memset")) for n in dev_ev)
+        d2h = sum("DtoH" in n for n in dev_ev)
+        reads = sum(e.name == "aten::_local_scalar_dense" for e in ev
+                    if e.device_type == DeviceType.CPU)
+        if kernels and d2h:
+            return dict(launches=kernels, d2h_copies=d2h, scalar_reads=reads)
+    raise RuntimeError("device_work: the profiler recorded no kernel or no "
+                       f"copy, {tries} times")
+
+
+def run_xm2_d(xm2, lifted, N, M, dev, **kw):
+    """``xm2_solve`` on scene D's lifted data; returns the result, the last
+    staircase solve (the certified one), the ranks of every solve, the
+    phase timer and the wall."""
+    import torch
+
+    from xmtpu_torch.utils.timer import PhaseTimer
+
+    edges, weights, landmarks = lifted
+    solves, orig = [], xm2.solve_arrays
+
+    def recording(*a, **k):
+        solves.append(orig(*a, **k))
+        return solves[-1]
+
+    timer = PhaseTimer()
+    xm2.solve_arrays = recording
+    t0 = time.perf_counter()
+    try:
+        out = xm2.xm2_solve(edges.copy(), weights.copy(), landmarks.copy(),
+                            np.zeros((len(landmarks), 3)), N, M,
+                            verbose=False, timer=timer, device=dev, **kw)
+        torch.cuda.synchronize()
+    finally:
+        xm2.solve_arrays = orig
+    return (out, solves[-1], [r.rank for r in solves], timer,
+            time.perf_counter() - t0)
+
+
+def run_scene_d(dev, counts):
+    """Phase 9: scene D written as a COLMAP database, ``python -m
+    xmtpu_torch mapper`` twice (equal tempdata), held against the JAX
+    package's counts; ``filter_pairs``' launches and host reads; lifting
+    with GT depth; ``xm2_solve`` dense and implicit, held against the JAX
+    package's runs; ``calibrate_view_graph`` on the card."""
+    import filecmp
+    import tempfile
+
+    import torch
+
+    from xmtpu_torch.__main__ import main as cli
+    from xmtpu_torch.pipeline import global_mapper as gm
+    from xmtpu_torch.pipeline import xm2
+    from xmtpu_torch.pipeline.calibration import calibrate_view_graph
+    from xmtpu_torch.pipeline.frontend import (build_view_graph, lift_dataset,
+                                               parse_glomap_tempdata)
+
+    t0 = time.perf_counter()
+    scD = make_scene_d(**SCENE_D)
+    t_gen = time.perf_counter() - t0
+    n_obs = [len(k) for k in scD.keypoints]
+    log(f"[smoke] scene D: {len(scD.R)} frames, {len(scD.pts)} points, "
+        f"{np.mean(n_obs):.1f} keypoints a frame ({sum(n_obs)} in all), "
+        f"{len(scD.pairs)} pairs sharing >= {SCENE_D_MIN_SHARED} points, "
+        f"{sum(len(m) for m in scD.matches)} matches, "
+        f"{int(scD.corrupted.sum())} corrupted; generated in {t_gen:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "database.db")
+        t0 = time.perf_counter()
+        write_scene_d(db, scD)
+        log(f"[smoke] scene D database: {time.perf_counter() - t0:.2f} s, "
+            f"{os.path.getsize(db) / 2**20:.1f} MiB")
+
+        # the mapper twice through the command line; the first run's first
+        # filter_pairs call is kept to count its launches and host reads
+        first, orig = [], gm.filter_pairs
+
+        def recording(*a, **k):
+            if not first:
+                first.append((a, k))
+            return orig(*a, **k)
+
+        outs, walls = [], []
+        gm.filter_pairs = recording
+        try:
+            for k in range(2):
+                outs.append(os.path.join(tmp, f"tempdata{k}"))
+                t0 = time.perf_counter()
+                rc = cli(["mapper", "--database_path", db, "--output_path",
+                          outs[-1]], device=dev)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if rc != 0:
+                    raise AssertionError(f"scene D mapper: exit code {rc}")
+        finally:
+            gm.filter_pairs = orig
+        log(f"[smoke] scene D mapper walls: {walls[0]:.2f} s, "
+            f"{walls[1]:.2f} s")
+        for name in ("output.txt", "filename.txt", "relative_pose.txt"):
+            if not filecmp.cmp(os.path.join(outs[0], name),
+                               os.path.join(outs[1], name), shallow=False):
+                raise AssertionError(f"scene D: the two mapper runs wrote "
+                                     f"different {name}")
+        (a, k), = first
+        work = device_work(lambda: orig(*a, **k))
+        log(f"[smoke] scene D filter_pairs ({len(a[0])} pairs, one call): "
+            f"{work['launches']} kernel launches, {work['scalar_reads']} "
+            f"scalar reads, {work['d2h_copies']} device-to-host copies")
+        exp = parse_glomap_tempdata(outs[0])
+
+    # the mapper's counts, exact, and its pair filter
+    got = dict(registered=len(np.unique(exp.matches[:, 0])),
+               valid_pairs=len(exp.relposes), n_tracks=exp.M,
+               n_obs=len(exp.matches))
+    log(f"[smoke] scene D mapper: {got} (JAX package: {MAPPER_D})")
+    if got != MAPPER_D:
+        raise AssertionError(f"scene D mapper counts {got} vs {MAPPER_D}")
+    pair_of = {(int(i) + 1, int(j) + 1): p
+               for p, (i, j) in enumerate(scD.pairs)}
+    kept = np.zeros(len(scD.pairs), dtype=bool)
+    r_err = 0.0
+    for (id1, id2), (R, _) in exp.relposes.items():
+        kept[pair_of[(id1, id2)]] = True
+        R_gt = scD.R[id2 - 1] @ scD.R[id1 - 1].T
+        r_err = max(r_err, float(np.abs(R - R_gt).max()))
+    log(f"[smoke] scene D pairs: {int((kept & scD.corrupted).sum())} of "
+        f"{int(scD.corrupted.sum())} corrupted kept, "
+        f"{int((~kept & ~scD.corrupted).sum())} clean dropped; R_rel "
+        f"{r_err:.2e} from GT at most")
+    if (kept & scD.corrupted).any() or (~kept & ~scD.corrupted).any():
+        raise AssertionError("scene D: a corrupted pair kept or a clean pair "
+                             "dropped")
+    if not r_err <= 1e-4:
+        raise AssertionError(f"scene D: R_rel {r_err:.2e} from GT")
+
+    # lifting with GT depth, then XM^2 dense (its defaults) and implicit
+    t0 = time.perf_counter()
+    vg = build_view_graph(exp.matches, N=exp.N, M=exp.M)
+    lifted = lift_dataset(vg, lambda i: scene_d_depth(scD, i),
+                          lambda i: scD.K)
+    log(f"[smoke] scene D lifting: {time.perf_counter() - t0:.2f} s, "
+        f"{len(lifted[0])} observations, {vg.N} frames, {vg.M} tracks")
+    R_gt = scD.R.transpose(0, 2, 1)
+    for tag, kw, ref in (
+            ("dense", XM2_D_ARGS["dense"], XM2_D["dense"]),
+            ("implicit", XM2_D_ARGS["implicit"], XM2_D["implicit"]),
+            ("implicit default tol", dict(implicit=True), XM2_D_DEFAULT)):
+        reset_counts()
+        out, last, ranks, timer, wall = run_xm2_d(xm2, lifted, vg.N, vg.M,
+                                                  dev, **kw)
+        counts[f"D {tag}"] = read_counts()
+        rot = rotation_error_stats(out.R_real, R_gt, out.indices_all)
+        m = scene_d_report(out, scD)
+        log(f"[smoke] scene D xm2_solve {tag}: wall {wall:.2f} s, ranks "
+            f"{ranks}, certified {last.certified} at rank {last.rank}, "
+            f"primal {last.primal!r} (JAX package {ref['primal']!r}, "
+            f"rank {ref['rank']}), lam {out.lam}, rotation errors {rot} "
+            f"(JAX package {ref['rot']}); ATE/RPE "
+            f"{ {k: float(v) for k, v in m.items()} }; launches "
+            f"{counts[f'D {tag}']}; phases:")
+        for line in timer.report().splitlines():
+            log(f"[smoke]   {line}")
+        if ref is XM2_D_DEFAULT:
+            continue                # printed beside the reference, not held
+        if not (last.certified and last.rank == ref["rank"]):
+            raise AssertionError(f"scene D {tag}: not certified at rank "
+                                 f"{ref['rank']}")
+        if abs(last.primal - ref["primal"]) > RTOL_IMPLICIT * ref["primal"]:
+            raise AssertionError(f"scene D {tag}: primal {last.primal} vs "
+                                 f"{ref['primal']}")
+        check_rotations(f"scene D {tag}", rot, ref["rot"])
+    if counts["D implicit"]["sorted_segment_sum"] <= 0:
+        raise AssertionError("scene D implicit: sorted_segment_sum never "
+                             "launched")
+
+    # view-graph calibration on the card
+    F, cam0, cam1, pp, f0 = scene_d_calibration_inputs(scD)
+    t0 = time.perf_counter()
+    cal = calibrate_view_graph(F, cam0, cam1, pp, f0, prior_mask=[False],
+                               device=dev)
+    f_cal = float(cal["focals"][0])
+    log(f"[smoke] scene D calibrate_view_graph ({len(F)} pairs, from "
+        f"{f0[0]}): focal {f_cal!r} (JAX package {CALIB_D!r}), "
+        f"{int(cal['pair_valid'].sum())} pairs valid, "
+        f"{time.perf_counter() - t0:.2f} s")
+    f_true = SCENE_D_CAMERA["f"]
+    if not (abs(f_cal - f_true) <= 0.01 * f_true
+            and abs(f_cal - CALIB_D) <= 1e-6 * CALIB_D):
+        raise AssertionError(f"scene D calibration: focal {f_cal}")
+
+
 def main() -> int:
     import torch
 
@@ -1061,7 +1510,15 @@ def run(dev, card: str) -> int:
         log(f"[smoke]   {line}")
     check_rotations("xm2_solve scene B", rot_X, ROT_XM2_B)
 
-    # ---- 9. report ------------------------------------------------------------
+    # ---- 9. scene D: database -> mapper -> lifting -> XM^2 ----------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_scene_d(dev, counts)
+    log(f"[smoke] scene D: phase wall {time.perf_counter() - t0:.1f} s, "
+        f"device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # ---- 10. report -----------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
     dense_cases = [r for r in held.values() if "dense_ms" in r]
     step_err = worst([r[k] for r in held.values() if "dense_ms" not in r

@@ -27,7 +27,16 @@ MODULES = ["xmtpu_torch", "xmtpu_torch.XM", "xmtpu_torch.config",
            "xmtpu_torch.assembly.creatematrix",
            "xmtpu_torch.solver.certificate", "xmtpu_torch.solver.checkpoint",
            "xmtpu_torch.solver.staircase", "xmtpu_torch.solver.trust_region",
-           "chip_smoke"]
+           "xmtpu_torch.__main__", "xmtpu_torch.ops.l1",
+           "xmtpu_torch.pipeline.calibration",
+           "xmtpu_torch.pipeline.colmap_db", "xmtpu_torch.pipeline.colmap_io",
+           "xmtpu_torch.pipeline.frontend",
+           "xmtpu_torch.pipeline.global_mapper",
+           "xmtpu_torch.pipeline.manipulation", "xmtpu_torch.pipeline.metrics",
+           "xmtpu_torch.pipeline.refine",
+           "xmtpu_torch.pipeline.rotation_averaging",
+           "xmtpu_torch.pipeline.undistort", "xmtpu_torch.pipeline.viewgraph",
+           "xmtpu_torch.pipeline.visualization", "chip_smoke"]
 
 
 def _run(code, cwd=ROOT):
@@ -85,10 +94,23 @@ def _tiny(tmp_path):
 @pytest.mark.parametrize("entry", ["solve_arrays", "solve", "solve_with_init",
                                    "solve_rank3", "create_matrix_arrays",
                                    "certify", "trust_region_solve",
-                                   "SchurQ.build", "xm2_solve"])
+                                   "SchurQ.build", "xm2_solve",
+                                   "main solve", "main solve-rank3",
+                                   "main recover", "main certify",
+                                   "main mapper", "global_mapper_solve",
+                                   "calibrate_view_graph",
+                                   "rotation_averaging", "filter_pairs",
+                                   "l1_solve_dense"])
 def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     import xmtpu_torch
+    from xmtpu_torch.__main__ import main
+    from xmtpu_torch.ops.l1 import l1_solve_dense
     from xmtpu_torch.ops.schurq import SchurQ
+    from xmtpu_torch.pipeline.calibration import calibrate_view_graph
+    from xmtpu_torch.pipeline.colmap_db import ViewGraphData
+    from xmtpu_torch.pipeline.global_mapper import global_mapper_solve
+    from xmtpu_torch.pipeline.rotation_averaging import (filter_pairs,
+                                                         rotation_averaging)
     from xmtpu_torch.pipeline.xm2 import xm2_solve
 
     sc = _tiny(tmp_path)
@@ -108,7 +130,21 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
         "xm2_solve": lambda: xm2_solve(sc.edges, sc.weights, sc.landmarks,
                                        sc.rgbs, sc.N, sc.M, implicit=True,
                                        verbose=False),
+        "global_mapper_solve": lambda: global_mapper_solve(
+            ViewGraphData(*([None] * len(ViewGraphData._fields)))),
+        "calibrate_view_graph": lambda: calibrate_view_graph(
+            np.eye(3)[None], [0], [0], [[0.0, 0.0]], [1.0]),
+        "rotation_averaging": lambda: rotation_averaging(
+            np.array([[0, 1]]), np.eye(3)[None], 2),
+        "filter_pairs": lambda: filter_pairs(np.array([[0, 1]]),
+                                             np.eye(3)[None], 2),
+        "l1_solve_dense": lambda: l1_solve_dense(np.eye(2), np.ones(2)),
     }
+    for cmd in ("solve", "solve-rank3", "recover", "certify"):
+        calls[f"main {cmd}"] = lambda cmd=cmd: main([cmd, str(tmp_path)])
+    calls["main mapper"] = lambda: main([
+        "mapper", "--database_path", str(tmp_path / "database.db"),
+        "--output_path", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     assert not (tmp_path / "R.bin").exists()
@@ -127,3 +163,24 @@ def test_chip_smoke_fails_without_card(alone, tmp_path, no_card):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_python_dash_m_without_card_fails(tmp_path, no_card):
+    """``python -m xmtpu_torch`` offers the six subcommands and, with no
+    card, fails instead of running on the host."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-m", "xmtpu_torch", "--help"],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0
+    for cmd in ("info", "solve", "solve-rank3", "recover", "certify",
+                "mapper"):
+        assert cmd in out.stdout
+    out = subprocess.run([sys.executable, "-m", "xmtpu_torch", "mapper",
+                          "--database_path", str(tmp_path / "db"),
+                          "--output_path", str(tmp_path / "out")],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert not (tmp_path / "out").exists()

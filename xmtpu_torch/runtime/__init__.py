@@ -1,10 +1,11 @@
-"""Native runtime: the union-find connected components, built on demand.
+"""Native runtime: union-find connected components and track
+establishment, built on demand.
 
-The port's own copy of ``xmtpu/runtime`` (``connected_component_labels``
-only).  ``native.cpp`` is compiled by ``g++`` at first use into
-``xmtpu_torch/_build/`` (keyed by a hash of the source) and loaded with
-``ctypes``.  Where no compiler is available, the same labels come from
-scipy, the reference's fallback.
+The port's own copy of ``xmtpu/runtime``.  ``native.cpp`` is compiled by
+``g++`` at first use into ``xmtpu_torch/_build/`` (keyed by a hash of the
+source) and loaded with ``ctypes``.  Where no compiler is available, the
+same results come from scipy, the reference's fallback (for tracks, its
+components sorted by size).
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ def _load():
     lib.xmtpu_connected_components.restype = ctypes.c_int64
     lib.xmtpu_connected_components.argtypes = [
         i64p, i64p, ctypes.c_int64, ctypes.c_int64, i64p]
+    lib.xmtpu_establish_tracks.restype = ctypes.c_int64
+    lib.xmtpu_establish_tracks.argtypes = [
+        i64p, i64p, ctypes.c_int64, ctypes.c_int64, i64p]
     return lib
 
 
@@ -74,3 +78,28 @@ def connected_component_labels(u, v, n_nodes: int):
     g = coo_matrix((np.ones(len(u)), (u, v)), shape=(n_nodes, n_nodes))
     n_comp, labels = connected_components(g + g.T, directed=False)
     return int(n_comp), labels.astype(np.int64)
+
+
+def establish_tracks(node_a, node_b, n_nodes: int):
+    """Merge pairwise matches into tracks (GLOMAP track establishment core,
+    deps/glomap/glomap/controllers/track_establishment.cc).
+
+    ``node_a``/``node_b`` are pre-compacted observation node ids in
+    [0, n_nodes).  Returns ``(n_tracks, track_of_node)`` with track ids
+    ordered by descending track size: the native library when built,
+    scipy otherwise.
+    """
+    a = np.ascontiguousarray(node_a, dtype=np.int64)
+    b = np.ascontiguousarray(node_b, dtype=np.int64)
+    lib = _load()
+    if lib is not None:
+        track_of = np.empty(n_nodes, dtype=np.int64)
+        n_tracks = lib.xmtpu_establish_tracks(a, b, len(a), n_nodes, track_of)
+        return int(n_tracks), track_of
+    # components == tracks, then a stable sort by descending size
+    n_comp, labels = connected_component_labels(a, b, n_nodes)
+    sizes = np.bincount(labels, minlength=n_comp)
+    order = np.argsort(-sizes, kind="stable")
+    remap = np.empty_like(order)
+    remap[order] = np.arange(n_comp)
+    return int(n_comp), remap[labels]
