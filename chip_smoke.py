@@ -48,12 +48,17 @@ Phases (any failure exits non-zero; no phase is caught):
    tempdata files; images, valid pairs, tracks and observations equal to
    the JAX package's; every corrupted pair dropped, no clean one; ``R_rel``
    within 1e-4 of GT), the launches and host reads of one ``filter_pairs``
-   call, lifting with GT depth, ``xm2_solve`` at its defaults (dense) and
-   implicit (``sorted_segment_sum`` launched), each certified at the JAX
-   package's rank within 5e-3 of its primal and 1.5x its rotation errors,
-   the implicit route at its default tol printed beside the JAX package's,
-   and ``calibrate_view_graph`` within 1 % of the focal and 1e-6 of the JAX
-   package's; per-stage seconds and the device memory peak;
+   call; ``filter_pairs`` on every stored pair with the rotations
+   decomposed from their E (mask = the clean pairs, twice; its loops'
+   iterations, launches and host reads); lifting with GT depth,
+   ``xm2_solve`` at its defaults (dense) and implicit at tol 1e-4
+   (``sorted_segment_sum`` launched), each certified at the JAX package's
+   rank within 5e-3 of its primal and 1.5x its rotation errors; the
+   implicit route at its default tol certified at the rank of the dense
+   route on its observations at the lam it picked, within 5e-3 of that
+   primal; and ``calibrate_view_graph`` within 1 % of the focal and 1e-6
+   of the JAX package's; per-stage seconds and the phase's device memory
+   peak above what it started with;
 10. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
@@ -157,8 +162,11 @@ MAPPER_D = dict(registered=200, valid_pairs=7950, n_tracks=7381,
 # where its stages run in f64: at the default tol=1e-1 (and at 1e-3) the f32
 # and two-float stages stop at their noise floor, where the libraries'
 # orders part, and on scene D that flips the rank-3 probe's scale test
-# (|s_avg - 1| vs 2 std at std 1.5e-4), hence lam, rank and primal; the
-# port's default-tol run is printed beside XM2_D_DEFAULT, not held
+# (|s_avg - 1| vs 2 std at std 1.5e-4), hence lam, rank and primal.  On the
+# CPU the port takes the JAX package's branch at the default tol (lam 0,
+# certified rank 3 at 6.666298070003821, commit fac41b7).  The default-tol
+# run is held against the dense route at the lam it picked
+# (hold_default_tol) and printed beside XM2_D_DEFAULT and XM2_D_FORCED
 XM2_D_ARGS = dict(dense={}, implicit=dict(implicit=True, tol=1e-4))
 XM2_D = dict(
     dense=dict(rank=4, primal=6.66350697353551,
@@ -170,6 +178,10 @@ XM2_D = dict(
 XM2_D_DEFAULT = dict(rank=3, primal=6.665356859005428, lam=0.0,
                      rot=dict(max=0.0013050636879244804,
                               mean=0.0007242564219372327))
+# the JAX package's default-tol implicit run with pass 2's final
+# _solve_recover given lam = |E| / N of its observations (the branch its
+# probe declined), at commit fac41b7: certified rank 4
+XM2_D_FORCED = dict(rank=4, primal=6.777635902752089, lam=1337.475)
 # calibrate_view_graph(*scene_d_calibration_inputs(scene D),
 # prior_mask=[False]) -> focal
 CALIB_D = 600.0000000000765
@@ -983,6 +995,67 @@ def scene_d_calibration_inputs(sc: SceneD, seed: int = 0):
             np.array([0.85 * SCENE_D_CAMERA["f"]]))
 
 
+def scene_d_stored_relposes(sc: SceneD):
+    """The relative rotation of every stored pair, decomposed from its E on
+    its matches' bearings as the mapper's stage 0 does, before stage 2's
+    inlier test: the corrupted pairs carry their corrupted rotations."""
+    from xmtpu_torch.pipeline.manipulation import pose_from_essential
+    from xmtpu_torch.pipeline.undistort import Camera, undistorted_bearings
+
+    c = SCENE_D_CAMERA
+    cam = Camera(model="SIMPLE_PINHOLE", params=[c["f"], c["cx"], c["cy"]],
+                 width=c["width"], height=c["height"])
+    R_rel = np.empty((len(sc.pairs), 3, 3))
+    for p, (i, j) in enumerate(sc.pairs):
+        m = sc.matches[p]
+        R_rel[p] = pose_from_essential(
+            sc.E[p], undistorted_bearings(cam, sc.keypoints[i][m[:, 0]]),
+            undistorted_bearings(cam, sc.keypoints[j][m[:, 1]]))[0]
+    return R_rel
+
+
+def filter_iterations(fn):
+    """Runs ``fn`` (a ``filter_pairs`` call) counting the iterations of its
+    loops: the L1 phase's (calls of the ADMM solve), the ADMM's over all of
+    them (its z-update soft-thresholds each leaf of ``b`` once an
+    iteration) and the IRLS phase's (rotation updates past the L1 phase's).
+    Returns ``(fn(), counts)``."""
+    from xmtpu_torch.ops import l1
+    from xmtpu_torch.pipeline import rotation_averaging as ra
+
+    n = dict(l1=0, admm=0, irls=0, shrink=0, updates=0)
+    make, shrink, expm = ra.make_l1_admm, l1._shrinkage, ra._expm_so3
+
+    def counting_make(*a, **k):
+        solve = make(*a, **k)
+
+        def counted(b, x0, max_iters):
+            n["l1"] += 1
+            before = n["shrink"]
+            x = solve(b, x0, max_iters)
+            n["admm"] += (n["shrink"] - before) // len(b)
+            return x
+        return counted
+
+    def counting_shrink(*a):
+        n["shrink"] += 1
+        return shrink(*a)
+
+    def counting_expm(*a):
+        n["updates"] += 1
+        return expm(*a)
+
+    ra.make_l1_admm, l1._shrinkage, ra._expm_so3 = (
+        counting_make, counting_shrink, counting_expm)
+    try:
+        out = fn()
+    finally:
+        ra.make_l1_admm, l1._shrinkage, ra._expm_so3 = make, shrink, expm
+    n["irls"] = n.pop("updates") - n["l1"]
+    del n["shrink"]
+    return out, n
+
+
 def scene_d_report(out, sc: SceneD):
     """``metrics.evaluate`` of an ``XM2Result`` against scene D's GT (w2c
     convention, solved frames mapped through ``indices_all``), as the
@@ -1058,6 +1131,38 @@ def run_xm2_d(xm2, lifted, N, M, dev, **kw):
             time.perf_counter() - t0)
 
 
+def hold_default_tol(xm2, out, last, dev):
+    """Holds scene D's implicit run at the default tol, whose f32 and
+    two-float stages let noise pick pass 2's lam (see ``XM2_D_ARGS``): its
+    last solve must certify at the rank that the dense f64 route certifies
+    on the same observations at the lam the run picked, with the primal
+    within ``RTOL_IMPLICIT`` of that route's."""
+    import torch
+
+    t0 = time.perf_counter()
+    op, _, _ = xm2._assemble_operator(out.weights, out.edges, out.landmarks,
+                                      False, False, "f64", dev)
+    wit = xm2.solve_arrays(op, 5, 1e-1, out.lam, 1000.0, verbose=False,
+                           precision="f64", device=dev)
+    torch.cuda.synchronize()
+    log(f"[smoke] scene D default tol, the dense route on its "
+        f"{len(out.edges)} observations at lam {out.lam}: certified "
+        f"{wit.certified} at rank {wit.rank}, primal {wit.primal!r} "
+        f"({time.perf_counter() - t0:.2f} s); the JAX package: lam "
+        f"{XM2_D_DEFAULT['lam']}, rank {XM2_D_DEFAULT['rank']}, primal "
+        f"{XM2_D_DEFAULT['primal']!r}; with lam forced to "
+        f"{XM2_D_FORCED['lam']}: rank {XM2_D_FORCED['rank']}, primal "
+        f"{XM2_D_FORCED['primal']!r}")
+    if not (wit.certified and last.certified and last.rank == wit.rank):
+        raise AssertionError(f"scene D default tol: certified "
+                             f"{last.certified} at rank {last.rank}, the "
+                             f"dense route at its lam {wit.certified} at "
+                             f"rank {wit.rank}")
+    if abs(last.primal - wit.primal) > RTOL_IMPLICIT * wit.primal:
+        raise AssertionError(f"scene D default tol: primal {last.primal} vs "
+                             f"the dense route's {wit.primal}")
+
+
 def run_scene_d(dev, counts):
     """Phase 9: scene D written as a COLMAP database, ``python -m
     xmtpu_torch mapper`` twice (equal tempdata), held against the JAX
@@ -1075,6 +1180,7 @@ def run_scene_d(dev, counts):
     from xmtpu_torch.pipeline.calibration import calibrate_view_graph
     from xmtpu_torch.pipeline.frontend import (build_view_graph, lift_dataset,
                                                parse_glomap_tempdata)
+    from xmtpu_torch.pipeline.rotation_averaging import filter_pairs
 
     t0 = time.perf_counter()
     scD = make_scene_d(**SCENE_D)
@@ -1154,6 +1260,42 @@ def run_scene_d(dev, counts):
     if not r_err <= 1e-4:
         raise AssertionError(f"scene D: R_rel {r_err:.2e} from GT")
 
+    # the robust path: filter_pairs on every stored pair with the rotation
+    # decomposed from its E, the corrupted ones included (in the mapper
+    # stage 2's inlier test drops them before stage 3 sees them)
+    t0 = time.perf_counter()
+    R_st = scene_d_stored_relposes(scD)
+    t_dec = time.perf_counter() - t0
+    w_st = np.array([len(m) for m in scD.matches], dtype=np.float64)
+
+    def robust():
+        return filter_pairs(scD.pairs, R_st, len(scD.R), max_angle_deg=10.0,
+                            weights=w_st, device=dev)
+
+    t0 = time.perf_counter()
+    (keep_r, res_r), iters = filter_iterations(robust)
+    torch.cuda.synchronize()
+    t_rob = time.perf_counter() - t0
+    keep_again = robust()[0]
+    t0 = time.perf_counter()
+    work = device_work(robust)
+    t_traced = time.perf_counter() - t0
+    ang = np.degrees(res_r.residual_angles)
+    log(f"[smoke] scene D filter_pairs on all {len(scD.pairs)} stored pairs "
+        f"({int(scD.corrupted.sum())} corrupted; decomposed in {t_dec:.2f} "
+        f"s): {t_rob:.3f} s ({t_traced:.1f} s traced), iterations {iters}, "
+        f"{work['launches']} kernel "
+        f"launches, {work['scalar_reads']} scalar reads, "
+        f"{work['d2h_copies']} device-to-host copies; residuals: clean "
+        f"{ang[~scD.corrupted].max():.4f} deg at most, corrupted "
+        f"{ang[scD.corrupted].min():.2f} deg at least; "
+        f"{int((keep_r != ~scD.corrupted).sum())} pairs misjudged")
+    if not np.array_equal(keep_r, ~scD.corrupted):
+        raise AssertionError("scene D filter_pairs on the stored pairs: the "
+                             "mask is not the clean pairs")
+    if not np.array_equal(keep_again, keep_r):
+        raise AssertionError("scene D filter_pairs: two calls' masks differ")
+
     # lifting with GT depth, then XM^2 dense (its defaults) and implicit
     t0 = time.perf_counter()
     vg = build_view_graph(exp.matches, N=exp.N, M=exp.M)
@@ -1182,7 +1324,8 @@ def run_scene_d(dev, counts):
         for line in timer.report().splitlines():
             log(f"[smoke]   {line}")
         if ref is XM2_D_DEFAULT:
-            continue                # printed beside the reference, not held
+            hold_default_tol(xm2, out, last, dev)
+            continue
         if not (last.certified and last.rank == ref["rank"]):
             raise AssertionError(f"scene D {tag}: not certified at rank "
                                  f"{ref['rank']}")
@@ -1511,12 +1654,15 @@ def run(dev, card: str) -> int:
     check_rotations("xm2_solve scene B", rot_X, ROT_XM2_B)
 
     # ---- 9. scene D: database -> mapper -> lifting -> XM^2 ----------------
+    # the phase's own peak: above what phases 1-8 still hold when it starts
     torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     run_scene_d(dev, counts)
     log(f"[smoke] scene D: phase wall {time.perf_counter() - t0:.1f} s, "
         f"device memory peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
+        f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
 
     # ---- 10. report -----------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]

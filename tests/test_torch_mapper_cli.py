@@ -179,7 +179,8 @@ def test_export_tempdata_files_equal(tmp_path):
      "--Triangulation.min_angle", "2.0"],
     ["--ViewGraphCalib.thres_two_view_error", "1.5",
      "--RelPoseEstimation.max_epipolar_error", "2.0",
-     "--Thresholds.max_rotation_error", "5", "--skip_pruning", "1"]])
+     "--Thresholds.max_rotation_error", "5", "--skip_pruning", "1"],
+    ["--ba_iteration_num", "5", "--retriangulation_iteration_num", "2"]])
 def test_mapper_subcommand_matches(tmp_path, flags, capsys):
     db = _ring_db(tmp_path)
     out = {}

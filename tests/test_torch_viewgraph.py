@@ -9,9 +9,11 @@ and floats within 1e-12.
 import numpy as np
 import pytest
 
+from xmtpu.pipeline import global_mapper as jgm
 from xmtpu.pipeline import manipulation as jvm
 from xmtpu.pipeline import undistort as jud
 from xmtpu.pipeline import viewgraph as jvg
+from xmtpu_torch.pipeline import global_mapper as tgm
 from xmtpu_torch.pipeline import manipulation as tvm
 from xmtpu_torch.pipeline import undistort as tud
 from xmtpu_torch.pipeline import viewgraph as tvg
@@ -205,3 +207,20 @@ def test_covisibility_and_pruning_match():
     for jr, tr in zip(jvm.prune_weakly_connected_images(edges, 8),
                       tvm.prune_weakly_connected_images(edges, 8)):
         np.testing.assert_array_equal(tr, jr)
+    for jr, tr in zip(jgm.prune_from_observations(edges, 8),
+                      tgm.prune_from_observations(edges, 8)):
+        np.testing.assert_array_equal(tr, jr)
+
+
+@pytest.mark.parametrize("min_per_view,max_tracks", [(0, 10**7), (2, 10**7),
+                                                     (3, 12), (1, 5)])
+def test_select_tracks_greedy_matches(min_per_view, max_tracks):
+    rng = np.random.default_rng(7)
+    obs_track = np.repeat(np.arange(80), rng.integers(2, 7, size=80))
+    obs_img = rng.integers(0, 10, size=len(obs_track))
+    j = jgm._select_tracks_greedy(obs_img, obs_track, 80, 10, min_per_view,
+                                  max_tracks)
+    t = tgm._select_tracks_greedy(obs_img, obs_track, 80, 10, min_per_view,
+                                  max_tracks)
+    assert t.any() and not t.all()
+    np.testing.assert_array_equal(t, j)

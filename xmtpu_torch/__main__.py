@@ -44,8 +44,8 @@ _MAPPER_FLAGS = [
     ("skip_bundle_adjustment", _bool, "mapper", "skip_bundle_adjustment"),
     ("skip_retriangulation", _bool, "mapper", "skip_retriangulation"),
     ("skip_pruning", _bool, "mapper", "skip_pruning"),
-    ("ba_iteration_num", int, "mapper", "num_iteration_bundle_adjustment"),
-    ("retriangulation_iteration_num", int, "mapper",
+    ("ba_iteration_num", int, "ba", "num_iteration_bundle_adjustment"),
+    ("retriangulation_iteration_num", int, "tri",
      "num_iteration_retriangulation"),
     ("ViewGraphCalib.thres_lower_ratio", float, "calib",
      "thres_lower_ratio"),
@@ -97,8 +97,9 @@ _MAPPER_FLAGS = [
 def _mapper_options(args):
     """Assemble GlobalMapperOptions from the parsed namespaced flags.  The
     flags of stages 5-7 (global positioning, bundle adjustment,
-    triangulation) are accepted and left out: those stages are not ported
-    and their skip flags raise."""
+    triangulation, and the bundle-adjustment and retriangulation iteration
+    counts) are accepted and left out: those stages are not ported and
+    their skip flags raise."""
     from xmtpu_torch.pipeline.calibration import CalibrationOptions
     from xmtpu_torch.pipeline.global_mapper import GlobalMapperOptions
     from xmtpu_torch.pipeline.viewgraph import InlierThresholds

@@ -63,14 +63,9 @@ class GlobalMapperOptions:
     skip_bundle_adjustment: bool = True
     skip_retriangulation: bool = True
     skip_pruning: bool = True
-    num_iteration_bundle_adjustment: int = 3   # GlobalMapperOptions default
-    num_iteration_retriangulation: int = 1
     inlier_thresholds: InlierThresholds = field(
         default_factory=InlierThresholds)
     max_rotation_error_deg: float = 10.0     # InlierThresholdOptions
-    max_angle_error_deg: float = 1.0         # types.h:20 (stage 5 filter)
-    max_reprojection_error: float = 1e-2     # types.h:21 (stage 6 filter)
-    min_triangulation_angle_deg: float = 1.0 # types.h:22
     min_num_view_per_track: int = 3          # track_establishment.h:17
     max_num_view_per_track: int = 1000000    # XM override
     # FindTracksForProblem caps (track_establishment.h:13-22): -1 means
@@ -79,10 +74,6 @@ class GlobalMapperOptions:
     min_num_tracks_per_view: int = -1
     max_num_tracks: int = 10000000
     calibration: CalibrationOptions | None = None
-    # stage 5-7 options, for the tail stages (not ported yet)
-    positioner: object | None = None         # PositionerOptions
-    bundle: object | None = None             # BundleAdjusterOptions
-    triangulator: object | None = None       # TriangulatorOptions
 
 
 class MapperResult(NamedTuple):
