@@ -59,7 +59,21 @@ Phases (any failure exits non-zero; no phase is caught):
    primal; and ``calibrate_view_graph`` within 1 % of the focal and 1e-6
    of the JAX package's; per-stage seconds and the phase's device memory
    peak above what it started with;
-10. print the kernels' JSON line, the card's name and power limit, and the
+10. scene D's mapper again with its tail stages 5-8 on (``--skip_* 0``):
+   the observations after stages 5, 6 and 7, the tracks positioned, the
+   strong clusters and the images kept held against the JAX package's;
+   the focal within 1e-6 and ``R_global`` and the camera centres within
+   1e-6 / 1e-5 of the JAX package's; the errors against ground truth
+   (rotations after a global rotation, centres after a similarity) within
+   1.5x of the JAX package's; every f64 segment-sum shape of the tail
+   launched, and no camera sum over the edges; a second
+   ``global_positioning`` and positions-only ``bundle_adjustment`` call,
+   traced, giving the same bits; ``sorted_segment_sum`` on the layouts the
+   run built (BATA's two, BA's image, track and camera ones, the
+   triangulation's tracks) the CPU twin's bits twice, timed beside
+   ``index_add_``; per-stage seconds, launches by shape, the BA loops' host
+   reads and the phase's device memory peak;
+11. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 A kernel's ``ms`` is its time on the card per launch (profiler durations);
@@ -71,11 +85,11 @@ HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
 card's time for ``torch.matmul`` on the same W (the dense variant's
 product) or for one ``index_add_`` on the same tensors (segment sums, whose
 plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
-its counter over the main-path runs of phases 3, 4, 6, 7, 8 and 9, each read
-just after its run with the counters set to 0 just before; the segment
-sum's launches are also counted by dtype and D (its ``shapes``), and its
-row on the ``kernels`` line shows the most launched shape, f32 D=3 on the
-landmark ordering.
+its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9 and 10,
+each read just after its run with the counters set to 0 just before; the
+segment sum's launches are also counted by dtype and D (its ``shapes``),
+and its row on the ``kernels`` line shows the most launched shape, f32 D=3
+on the landmark ordering, with the tail's shapes under ``tail``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -186,6 +200,122 @@ XM2_D_FORCED = dict(rank=4, primal=6.777635902752089, lam=1337.475)
 # prior_mask=[False]) -> focal
 CALIB_D = 600.0000000000765
 
+# scene D through the mapper's tail stages 5-8 (the four --skip_* flags 0).
+# Reference values: the JAX package on the CPU at commit c758f5b,
+# global_mapper_solve(database_to_view_graph(read_database(D)),
+# GlobalMapperOptions(skip_global_positioning=False,
+# skip_bundle_adjustment=False, skip_retriangulation=False,
+# skip_pruning=False), verbose=True) on write_scene_d's database: the
+# observations after stages 5, 6 and 7 and the tracks stage 5 positioned (its
+# log lines), the strong clusters and the images kept by stage 8, the final
+# focal, tail_gt_errors(R_global, t_global) and, in TAIL_D_POSES, R_global
+# as rotation vectors and the camera centres (N x 3 each, float32, base64;
+# tail_poses decodes them).  The same call through xmtpu_torch
+# (device="cpu") gave equal counts, the focal 4.6e-7 px apart, R_global
+# 4.5e-10 and the centres 3.6e-9 apart (the centres span 4.13 in the normalised frame).  On the card
+# they are held to TAIL_D_TOL: counts within 1e-4 of the reference's (the
+# filters are thresholds, and the card's f64 products add in other orders),
+# the focal within 1e-6 relative, R_global entries within 1e-6 and the
+# centres within 1e-5; and the errors against ground truth within ROT_SLACK
+# of the reference's
+TAIL_D = dict(gp_obs=258883, positioned=7381, ba_obs=127023, tri_obs=143544,
+              clusters=1, registered=200)
+TAIL_D_FOCAL = 589.3809540372678
+TAIL_D_GT = dict(rot_max=0.02022909213798919, rot_mean=0.006541770547908728,
+                 centre_max=0.001566667619792864,
+                 centre_mean=0.0004965192971045819)
+TAIL_D_TOL = dict(count=1e-4, focal=1e-6, R=1e-6, centre=1e-5)
+TAIL_D_POSES = (
+    "AAAAAAAAAAAAAAAAstExudovxD0Cgkc3YXGsOKt7Qz5a55c3KWjct5fukT74ONi3AOwCuHhL"
+    "wT7YwVC4c+qJNnCZ7z5Vwnu2+FO1uNs9Dj+m0ha2u/YZudrtIz9p5Zm3H0O8uE2vOD9rkGI4"
+    "leE0uPNmTD+OOaY3XhlruLEHXz93+VG1z7U1ucJ8cD/FDMO30dXTt7BUgD9tYq43o8TouPS7"
+    "hz/gNts35xeZtyRzjj+fg484MPi/uAhzlD+XBS+4JKgPuRe5mT9lMzQ3cx4yuIdAnj/uQDw3"
+    "VxL5t3oJoj9hVhA4/YVouPITpT/llg44gQJ6uPJqpz+lo5A3ogwKuXILqT9l07a36JAtuJD7"
+    "qT+FU244jxRKOFhFqj/ERY238nnsNxnrqT+97+O3A4sDuYcAqT/dbcy4Xq+5tz2Mpz95IDm4"
+    "o9EyuF2epT/8YGg4F7yLuPs6oz9/Yig4dDdJuVx8oD878J+4fDwDualmnT8HAA64rwaEuEkV"
+    "mj874AO3r7gAuUaSlj/mtAw46f5XuSnskj9nebw3ZPc/uaQ0jz+CSZy4AG0xucSDiz+mneW3"
+    "og11uQfhhz8H5UK4Ij1huDhkhD8/LK02l3znuNUYgT9aTSQ4Kj5EuaMgfD9GS8G4uEfSuHO2"
+    "dj/Zuwo4xhLEuHIPcj+PjXu20C0QuThUbj+kpRG41b6EuY2Maz+y2Sm3asmIuKuxaT8Zc1S2"
+    "lSjNuLEAaT/ok9Q4xiuCuJCFaT93zwO4nKVWuY9Eaz/WSYm4QU2guZhlbj8oEnq3akKVOArL"
+    "cj/Hthm4+ghVuDGCeD9Bn1U4d0wauCKnfz/XG6Q4d7+PuO4WhD+78pg3i2lkuVn2iD9/w5+4"
+    "TLwFt/mPjj+90Og3HerBN+XElD+V3Og4w6AfufWbmz+FvTm4pkIhuXcMoz/xFZ23mvDvN+YI"
+    "qz/kzVE1hEILuZWFsz9jRR64wkfMuNt9vD90T704A7N7uafkxT/8Sgi3NKfauLelzz/dqFi3"
+    "9QMjNhK52T8yUDI5voZYuTwN5D/D7R65GADYt/KW7j/KLjE5iDA6uY5G+T+9MKw2/Co8uFwH"
+    "AkDd/Cc5Elg3ODNqB0BIeo45ZJlDuW3HDEBt5Au3z6gpue4XEkB+KzQ4Mbi2uGhTF0DV0L44"
+    "6oYAuZVzHEC0WDk4BSFJuSBuIUCZHDm4SOrTuM4+JkCo2hg5CQZ/t8TdKkDavwM5t8+xuJZH"
+    "L0AfU2I5BMmaN9tzM0CLQA85lnKeuIlfN0Ax0Eo5FEz0NQMEO0A/vx44Z55+uCdlPkAiHNa3"
+    "JOA3uXl3QUARUS03HaHYt4U9REAwcgs5rchguYmzRkDSAos5M4saOMTaSEDnH6s40oYAN8Js"
+    "R8BEY1a5e/97OHjkRcDjTIu5vSFZOLaoRMAiG3e57xq9OMy6Q8Cq70a58uXmOEITQ8Dv2Vi5"
+    "z+/hOOquQsCd+YK5TjL3OCKLQsDsU7+54CjfNwWlQsA5z6m57TwHOXv1QsAp7Lu432R0NzV1"
+    "Q8AgTO25wkG9OBghRMDotiQ5FSwWOTnyRMAlpEu5oM8YOD3eRcC5iOi4f+jBONfiRsDTbaC5"
+    "jZcpOfP1R8CmKOm4fIWjOJ4MScCeC/64xsI/uZv2R0Alt4Y4xBEJtVHmRkARyaU5c3m7tmDf"
+    "RUBI9f85/8scufzzRED1yjS5lVf9N4MkREBnXoo5hEkYueR5Q0A9g6Y5lU1duLz3QkDbU6M5"
+    "q2KDuJ2oQkDXtjU5Oj/9NluNQkBDfK45bvEWuH2yQkDOcg05yhD8uEAUQ0Bia7o4DltBuYy7"
+    "Q0BjYSG5dd2cuGyqREA8bgE6MrqXuNjlRUCuo3458MeZuDZzR0AiUbc5xhcOOVrZSMCf6Ay6"
+    "caTuOHWyRsD0VoC5mRasOIs8RMCpGeW4n5poORV4QcCFVDW59GyZt5djPsBhbbS3J7suOOsD"
+    "O8BSXNw3gWnqOO5gN8AuxrI5HGKXt7JyM8BPIZW5GLgEOdNIL8DGJai5ubk4uIDeKsBeV504"
+    "5nAFN8E9JsD5kTC5sTOrOKVsIcCmaZk2vGdyOChyHMAQXCu5JuoyuFxSF8DeGsa4PtNSt5IZ"
+    "EsCb9DC5vMGXuOPGDMDXONe42Mz4OPZnB8DkdFS5zqa8Np0EAsAZRfS3GutxuO1I+b9nUyK4"
+    "EdP/NoeZ7r/KU7K4ihBFuFgO5L986+W4uEYYuK602b+N+Me4Jda8uCyez78aTpu4CGKDto7a"
+    "xb8/CxC5hnGnNzh4vL9CNhW5BbgMN3p/s79G9Cm5dCxpNxwBq78dAy+5bpLtN4AGo79BeV+5"
+    "Ga6QuIObm7/oq8K4s4M0t0HDlL+pmhS5qtGdOLyJjr9WTE+5zEC2N3X3iL/YhBG5E8BruEYN"
+    "hL8dCzq4m7bwNwCdf7/wtV65Pjqut2eDeL+kJia5wffFOFDJcr/wgyq5/5eSt2Fjbr9Y9q+4"
+    "e7l+N+1Ma78oRQO5g3sDucCAab+Dyca4UKV1uAkBab9gGeq4OmIFODqnab8u/uO4aKDUt+xz"
+    "a79lPyG5pt2luDNCbr9BX5q4+U+1uAsUcr9TG6a4osBBuV67dr9K5cS4ZxQON9IjfL9reAa5"
+    "bFaGt1EZgb8hMsO4SAuhNwtihL9iI9S4Ts8wuJ3fh788WjO4iMssuAx/i78nccG4WnjKuDIy"
+    "j7+5Kqy4Cy41uTTokr+fvuM3OHnzN66Mlr/CVh65XomHuXQRmr+cpAo52kfpOCFknb91HGi5"
+    "d3UquZt5oL/EEcA3NVqPN3k0o7+nDEO3xrZUOLSVpb9eoiK5Es8tucmLp78MtuS3R+AjONT9"
+    "qL/jzIG41Sp/uLPoqb+ojSu59tGKuCNCqr9ZX+649nt5uPj4qb8rJYS4ELBduAQKqb95bLO4"
+    "z96CuElrp78chQe5Key1uMsWpb/0Udm4jwkFufsDor8OkI24GPK3t9pAnr/B26i42BE5uBm0"
+    "mb9eozq5mMkEN9VwlL9RjRY4BxsvOQ1ujr+DVUS5JU/XuDK5h79atqW4yD5sub9NgL92B8I4"
+    "zPumuFtycL9jox25KscDuCD4Xr/t0824u63SuLNcTL+wfrS481CTuI2mOL9e4C25pogRuaDa"
+    "I79OZBi4A36uuBU8Dr8m0JS4TPvSuCSK776qhAm5NoOatxlMwb5yzrO4BwpguEoNkr76ByO5"
+    "9juvuGFrQ76hdOm42TEbuU/cw70MAre4niKEQAMLD7n5MaU8oxeEQFQrSTqeAf095N+DQOoa"
+    "ibryd2c+d4+DQGmKx7eCY6g+FhyDQOMmDLlC5tw+3YqCQJAmG7qJwgg/7tKBQLtApLd8uyI/"
+    "4PyAQHDyATr8sjw/KAiAQI3GbLmwYlY/ltV9QNUkhLnznm8/E2d7QFkpPbmDa4Q/ocN4QHZQ"
+    "OzoL+JA/ENZ1QJxNGLoxWp0/CqpyQKIxbjgWe6k/4UlvQGKOSbrSfbU/j6trQCwS6bgQWcE/"
+    "sNBnQEz30DlQD80/2rBjQAKF6LlahNg/ymVfQOjsJbrIueM/zd9aQE0L9LjZoe4/sxpWQNVX"
+    "ebnFkfk/EiNRQJdEyDlAFwJALPRLQPrSFLpxPQdAQppGQDmBLrqFSwxAnQ5BQEC3JLrIGhFA"
+    "wlU7QM3iKDqh3xVAD2k1QBr6yrjEcxpAJEsvQG/1KbqI9x5AMAApQHABDrrYMSNAvY8iQLhi"
+    "GTpYXCdAlvsbQPCHpjklRytARDQVQPBpk7iOHi9AMlAOQDfpj7kkyDJANkYHQO0pHTocOTZA"
+    "zRcAQEiABToSbzlAUKfxPzXywTkXjTxApdDiP1kuHDptcD9AdMHTP80WBboJKkJAxoTEP0BC"
+    "l7kaqURAkRS1PyzeZjoJ/UZAom6lP+JX5LkkHElAO6uVP49ce7l6C0tA4MWFPy7T+7g75kxA"
+    "KIBrPwJgKDooik5AvgNLPxLkmblhxk9AqYIqPxGrrrkl31BA4sQJPyrKsrnkxlFAj/PRPhQv"
+    "CTq8a1JAlymQPm7YgDo4F1NA1pccPpl2ibr4XFNAI8TEPKHEDLpKa1NASIbXvciQZbolVlNA"
+    "tRZvvuhEtLmmH1NAZ8a5vvPvjDlwelJAaiP7vr/zY7qh0FFAFF8evxejZbp33FBA8OE+v9hM"
+    "BLlIt09A1DVfv8+SBjlXdE5AZlZ/v1W6eboh5kxAZJWPv+N13Dm7IUtA9Vqfvye2DrpZMUlA"
+    "OASvv5Bp8Dn7G0dAtnW+v3CpnbkXuURA4L3Nv0XU0rpNLEJAurDcv1TJeDp3bD9AyH7rv031"
+    "nLpBezxAxSD6vxMYRjkSaTlA30UEwCDtHLpALDZA1UYLwC++3bo6uDJAcyQSwPQ47ThuES9A"
+    "v+IYwKPAArmFQCtAcoEfwIjHebmrSSdAbfQlwJxpBjj9KyNAkzoswP67zDnd2x5AqFEywKWo"
+    "K7pWcBpAFDg4wKCVOLr22BVAg/49wBmvQ7r9HBFAKYZDwAVxM7rAOwxAIOFIwCmwGLqyMAdA"
+    "evdNwIF4JzlWCgJATgJTwKZ5NDqOhfk/B7pXwMm4ujk2ue4/CkVcwG1RjLnFqeM/tJNgwBeL"
+    "SLoSaNg/26hkwMFKl7kJ7cw/RJBowIuV3rnTQME/OzBswDwufLrNZbU/xphvwO34FLowVqk/"
+    "n7RywNtV+rmyNJ0/iZ51wKj5ELpR2JA/H1V4wJOAYrq6YYQ/nsp6wAb1jrp4Z28/c/h8wIHT"
+    "iLqL1lU/U9t+wAzSg7nUPjw/VEyAwHxesrqpRSI/wf+AwOExtDr2QQg/Co+BwIoxxbkNedw+"
+    "vgeCwLhIRLl446c+OVeCwNzkMbq2u2Y+I4iCwOIBmLk6K/o9waGCwIQeErdR/5g8NIeCwKsg"
+    "9Tjz8ay951uCwI9vhLpHnD++Bv6BwLudy7r3pZS+r46BwIHKjzrgE8m+e/yAwDtxGbqrSP2+"
+    "IEqAwNFXd7qZwxi/O95+wDFWHLpEljK/o/h8wPK4A7qeNEy/erx6wGpMV7rfs2W/ymF4wGG3"
+    "mrl24H6/8a51wObNCTi5Aoy/27pywAkIbDqOVZi/Ao5vwH0LlrrUcKS//C9swLF6tLkJjLC/"
+    "1qlowMvs+bnvZry/F7VkwE0exrrIEsi/FJ9gwBn7Gbq4h9O/8klcwOv9TLdZyd6/H7ZXwJEt"
+    "A7obx+m/tAVTwJ8v7jlvtvS/wBdOwMKt/TnqS/+/CNdIwBJH8jqDvATAVYpDwDyKAbpuyAnA"
+    "Ru49wAHmErqhnw7A6i84wJ3OkjplYxPAf08ywJVfgjgeAxjAjzMswNcc3DmSdRzABeglwChs"
+    "dziStSDAP3MfwNQT1Tno4yTAbd0YwBegjDjrwijAQBcSwOZd8DlonyzAijELwN/VNbrPQDDA"
+    "4ioEwIHq6TmHrjPARP75v5uKPToO6DbAimHrvz41PDn8/znAhZjcv03XFToq5zzAkYbNv+a8"
+    "Ijpqpj/A1Ua+v6SadDr8MkLAJtOuv4y4SzkYi0TA/Dyfv16RhLXfo0bAem6Pv4sK3riDmkjA"
+    "pBt/v4UVZbl6V0rAFv9ev2B7iLmw20vA78U+vzBnbzoML03ANyQev3OiiTnkWk7A4dH6vrIA"
+    "TbrxT0/Au1S5vjmVXbmfBlDAxVBuvl4AFzoGi1DA58TUvaauDLrc3lDAmPzJPKyUCrnY7VDA"
+    "lzkcPqTESLpLz1DA+0KQPj4DCTqZelDAdQTSPu/Gm7mFAFDARgcKP5G/hzpSSk/Aa5EqP+ou"
+    "/Dl+XE7AQ0BLP60/sDiFO03A/m1rP3XEnDiC5EvAztuFPz30QTokY0rAnrqVP8paTzoxmEjA"
+    "znylP2stwzq/qEbAOyW1P0H6kzdNhETA9o/EP5P0Czo1KkLApNzTP3n+kjhtoj/AGebiPx0C"
+    "Zjq17jzA4LXxP+AWMToqDjrA4SUAQDjwoDoC8jbAQU4HQA6StDotqzPANFgOQGP7FbknOjDA"
+    "lEYVQGIUIzsGmyzAQgUcQOuuGLr70CjAkZciQBXs2Trx0iTADRkpQPH9BTpgwCDAz1gvQLIi"
+    "KLn+dxzAF2s1QCtsoDoR9xfA9F87QAi1BTp3ahPAsxpBQPyLCTripw7AEKJGQBNtJDpCvwnA"
+    "r/9LQMUgIDqCugTAIChRQAElPDoDJf+/nh5WQCDlMjqDl/S/A+RaQCsWLzpuu+m/nnNfQCIv"
+    "Njra1N6/LrZjQDy59Tn1YtO/CN9nQFjy7TmDBsi/aqxrQB+f/DnuTby/Y1hvQBBqP7qch7C/"
+    "+LRyQLnAozp0ZaS/ctp1QAFj4zoCQpi/IMx4QNlTpzll34u/Kol7QFB1zDnmAX+/yeR9QE74"
+    "JzrppWW//gOAQBYICDo160u/WgSBQH7GmzqZdjK/pNSBQOuoLzobWxi/eIaCQNbHMToN4fy+"
+    "sRmDQAcKk7kUaMi+dYKDQBqSCDqX35O+CeiDQNqdbjlMJj6+VxeEQBibTDp53am9")
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
 # f64 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -271,6 +401,38 @@ def device_ms(fn, reps: int, setup=None) -> float:
 
     base = busy_us(False) if setup else 0.0
     return max(busy_us(True) - base, 0.0) / reps / 1e3
+
+
+def launch_ms(fn, reps: int, tries: int = 5) -> float:
+    """Mean device ms of the one kernel that each call of ``fn`` launches,
+    over ``reps`` calls under ``torch.profiler``: the mean of the launches
+    it recorded.  The profiler drops launches at times (3 of 50 in one
+    process, 34 of 50 after the tail's traced calls in another), and a mean
+    over the launches it kept is a mean over identical launches; a traced
+    run that recorded none is taken again, ``tries`` times.  More than one
+    kernel a call raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+        if len(ev) > reps:
+            raise RuntimeError(f"launch_ms: {len(ev)} kernels recorded over "
+                               f"{reps} calls of one kernel each")
+        if ev:
+            return sum(ev) / len(ev) / 1e3
+    raise RuntimeError(f"launch_ms: no kernel recorded, {tries} times")
 
 
 def kernel_mean_ms(fn, name: str):
@@ -1076,8 +1238,9 @@ def scene_d_report(out, sc: SceneD):
 
 def device_work(fn, tries: int = 5):
     """Runs ``fn`` once under ``torch.profiler``: the kernels it launched
-    on the card, its device-to-host copies, and its scalar reads
-    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor).  A
+    on the card, its device-to-host copies, its scalar reads
+    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor) and the
+    summed durations of its device events (``busy_ms``).  A
     traced run with no kernel or no copy recorded (the profiler now and
     then drops a run's events) is taken again."""
     import torch
@@ -1091,13 +1254,16 @@ def device_work(fn, tries: int = 5):
             fn()
             torch.cuda.synchronize()
         ev = prof.events()
-        dev_ev = [e.name for e in ev if e.device_type == DeviceType.CUDA]
-        kernels = sum(not n.startswith(("Memcpy", "Memset")) for n in dev_ev)
-        d2h = sum("DtoH" in n for n in dev_ev)
+        dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA]
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in dev_ev)
+        d2h = sum("DtoH" in e.name for e in dev_ev)
         reads = sum(e.name == "aten::_local_scalar_dense" for e in ev
                     if e.device_type == DeviceType.CPU)
+        busy = sum(e.time_range.end - e.time_range.start for e in dev_ev)
         if kernels and d2h:
-            return dict(launches=kernels, d2h_copies=d2h, scalar_reads=reads)
+            return dict(launches=kernels, d2h_copies=d2h, scalar_reads=reads,
+                        busy_ms=busy / 1e3)
     raise RuntimeError("device_work: the profiler recorded no kernel or no "
                        f"copy, {tries} times")
 
@@ -1351,6 +1517,328 @@ def run_scene_d(dev, counts):
     if not (abs(f_cal - f_true) <= 0.01 * f_true
             and abs(f_cal - CALIB_D) <= 1e-6 * CALIB_D):
         raise AssertionError(f"scene D calibration: focal {f_cal}")
+
+
+def tail_gt_errors(R, t, sc: SceneD) -> dict:
+    """Cam_from_world poses (R, t) against scene D's GT: the rotation
+    errors (degrees) after the best global rotation, and the camera-centre
+    errors (metres) after the best similarity (Umeyama), max and mean."""
+    M = np.einsum("nba,nbc->ac", sc.R, R)
+    U, _, Vt = np.linalg.svd(M)
+    G = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    D = np.einsum("nab,bc,ndc->nad", sc.R, G, R)
+    rot = np.degrees(np.arccos(np.clip(
+        (np.trace(D, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)))
+    c = -np.einsum("nba,nb->na", R, t)
+    c_gt = -np.einsum("nba,nb->na", sc.R, sc.t)
+    X, Y = c - c.mean(0), c_gt - c_gt.mean(0)
+    U, S, Vt = np.linalg.svd(Y.T @ X / len(X))
+    d = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    scale = np.trace(np.diag(S) @ d) / np.mean(np.sum(X * X, axis=1))
+    err = np.linalg.norm(scale * X @ (U @ d @ Vt).T - Y, axis=1)
+    return dict(rot_max=float(rot.max()), rot_mean=float(rot.mean()),
+                centre_max=float(err.max()), centre_mean=float(err.mean()))
+
+
+def tail_poses(blob: str):
+    """``TAIL_D_POSES`` decoded: (N, 3, 3) rotations and (N, 3) centres."""
+    import base64
+
+    v = np.frombuffer(base64.b64decode("".join(blob.split())),
+                      dtype=np.float32).astype(np.float64).reshape(2, -1, 3)
+    return np.stack([_rotvec(w) for w in v[0]]), v[1]
+
+
+class _Recorder:
+    """Records the layouts of ``Segments`` built in one module during the
+    main path (the first ``keep`` of them), so the kernel can be held on
+    them afterwards."""
+
+    def __init__(self, module, keep: int):
+        self.module, self.keep, self.layouts = module, keep, []
+        self.orig = module.Segments
+
+    def __enter__(self):
+        rec, orig = self, self.orig
+
+        class Recording(orig):
+            def __init__(self, ids, num_segments, device):
+                if len(rec.layouts) < rec.keep:
+                    rec.layouts.append((np.array(ids, dtype=np.int64),
+                                        int(num_segments)))
+                super().__init__(ids, num_segments, device)
+
+        self.module.Segments = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.Segments = self.orig
+
+
+def hold_tail_segsum(layouts, dev, reps: int = 50):
+    """``sorted_segment_sum`` on the tail's real layouts (f64, through
+    ``Segments``): the CPU twin's bits, the same bits on a second launch;
+    timed a launch (``launch_ms``) beside ``index_add_`` on the same sorted
+    rows.  ``layouts``: ``(tag, ids, S, D)``."""
+    import torch
+
+    from xmtpu_torch.ops import segsum as ss
+
+    gen = np.random.default_rng(1)
+    cases = []
+    for tag, ids, S, D in layouts:
+        vals = gen.normal(size=(len(ids), D))
+        seg = ss.Segments(ids, S, dev)
+        v = torch.as_tensor(vals, device=dev)
+        a, b = seg.sum(v), seg.sum(v)
+        torch.cuda.synchronize()
+        want = ss.Segments(ids, S, "cpu").sum(torch.as_tensor(vals))
+        if not (torch.equal(a, b) and torch.equal(a.cpu(), want)):
+            raise AssertionError(f"tail segsum {tag} D={D}: repeatable "
+                                 f"{torch.equal(a, b)}, the CPU twin's bits "
+                                 f"{torch.equal(a.cpu(), want)}")
+        rows = v if seg.perm is None else v[seg.perm].contiguous()
+        out = torch.zeros((S, D), dtype=torch.float64, device=dev)
+        L = np.bincount(ids, minlength=S)
+        nbytes, ops = segsum_bytes_ops(len(ids), S, D, 8, S + 1)
+        cases.append(dict(
+            tag=f"{tag} D={D}", E=len(ids), S=S, D=D, longest=int(L.max()),
+            ms=launch_ms(lambda: ss.sorted_segment_sum(
+                rows, seg.ids, S, offsets=seg.offsets), reps),
+            plain_ms=cuda_ms(lambda: ss.sorted_segment_sum_plain(
+                rows, seg.ids, S), reps),
+            library_ms=launch_ms(lambda: out.index_add_(0, seg.ids, rows),
+                                 reps),
+            bound=bound_ms(nbytes, ops, PEAK_F64)))
+    return cases
+
+
+def watch_scene_c(Q_C, scC, res_C, dev):
+    """Scene C's certified point, checked twice: the certificate the solve
+    ran on the implicit operator again (its deciding path, gap, lam_min and
+    bound), and the port's dense certificate on scene C's exact dense f64
+    cost (3n = 18,432; 2.7 GB), with the point's primal evaluated there.  A
+    refutation there is a fault of the port.  Frees ``Q_C``."""
+    import torch
+
+    from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
+    from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.solver.certificate import _min_eig_bound, certify
+
+    n = scC.N
+    R = torch.as_tensor(res_C.R, device=dev).reshape(n, 3, -1)
+    sR = mf.flatten(mf.scale_blocks(R, torch.as_tensor(res_C.s_ex,
+                                                       device=dev)))
+    bound = _min_eig_bound(n)
+    t0 = time.perf_counter()
+    ci = certify(Q_C, sR, 0.0, res_C.primal, fast="auto", device=dev)
+    torch.cuda.synchronize()
+    t_cert = time.perf_counter() - t0
+    log(f"[smoke] scene C certificate on SchurQ ({t_cert:.2f} s): "
+        f"certified {ci.certified}, path {ci.info['path']}, gap "
+        f"{ci.gap:.4e} (gap / primal {ci.gap / res_C.primal:.3e}), lam_min "
+        f"{ci.lam_min:.4e}, bound {bound:g}, probe iterations "
+        f"{ci.info['probe_iters']}")
+    del Q_C
+    t0 = time.perf_counter()
+    C, _ = create_matrix_arrays(scC.weights, scC.edges, scC.landmarks,
+                                device=dev)
+    primal = float(torch.sum(sR * (C @ sR)))
+    cd = certify(C, sR, 0.0, primal, device=dev)
+    torch.cuda.synchronize()
+    log(f"[smoke] scene C's certified point on the dense f64 cost "
+        f"({C.shape[0]} x {C.shape[1]}, {time.perf_counter() - t0:.2f} s): "
+        f"primal {primal!r} (the solve's {res_C.primal!r}, the JAX "
+        f"package's {PRIMAL_C!r}); dense certificate certified "
+        f"{cd.certified}, gap {cd.gap:.4e} (gap / primal "
+        f"{cd.gap / primal:.3e}), lam_min {cd.lam_min:.4e}, bound {bound:g}")
+    if not cd.certified:
+        raise AssertionError("scene C: the dense certificate refutes the "
+                             "port's certified point")
+    # the two costs' f64 sums run in other orders (the dense assembly's
+    # atomics, the Schur elimination): 1.1e-9 apart on the H100
+    if abs(primal - res_C.primal) > 1e-8 * primal:
+        raise AssertionError(f"scene C: the dense cost's primal {primal} vs "
+                             f"the solve's {res_C.primal}")
+
+
+def run_scene_d_tail(dev, counts) -> list:
+    """Phase 10: scene D's mapper with stages 5-8 on, through
+    ``__main__.main(["mapper", ..., "--skip_* 0"])`` on the card, held
+    against the JAX package (counts, focal, poses) and ground truth; the
+    segment-sum kernel on the tail's real layouts; a second
+    ``global_positioning`` and positions-only ``bundle_adjustment`` call
+    repeating their bits.  Returns the kernel's cases on the tail shapes."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import torch
+
+    from xmtpu_torch.__main__ import main as cli
+    from xmtpu_torch.pipeline import bundle_adjustment as ba
+    from xmtpu_torch.pipeline import global_mapper as gm
+    from xmtpu_torch.pipeline import global_positioning as gp
+    from xmtpu_torch.pipeline import triangulation as tri
+    from xmtpu_torch.utils.timer import PhaseTimer
+
+    t0 = time.perf_counter()
+    scD = make_scene_d(**SCENE_D)
+    timer, result, gp_calls, ba_calls = PhaseTimer(), [], [], []
+    solve, gp_fn, ba_fn = (gm.global_mapper_solve, gp.global_positioning,
+                           ba.bundle_adjustment)
+
+    def solving(*a, **k):
+        result.append(solve(*a, timer=timer, **k))
+        return result[-1]
+
+    def positioning(*a, **k):
+        out = gp_fn(*a, **k)
+        if not gp_calls:
+            gp_calls.append((a, k, out))
+        return out
+
+    def adjusting(*a, **k):
+        out = ba_fn(*a, **k)
+        opts = a[8] if len(a) > 8 else k.get("opts")
+        if not ba_calls and not opts.optimize_rotations:
+            ba_calls.append((a, k, out))
+        return out
+
+    adjusting.host_reads = 0   # the LM loops' reads land on the patched name
+    flags = ["--skip_global_positioning", "0", "--skip_bundle_adjustment",
+             "0", "--skip_retriangulation", "0", "--skip_pruning", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "database.db")
+        write_scene_d(db, scD)
+        t_set = time.perf_counter() - t0
+        gm.global_mapper_solve, gp.global_positioning = solving, positioning
+        ba.bundle_adjustment = adjusting
+        text = io.StringIO()
+        reset_counts()
+        try:
+            with _Recorder(gp, 2) as r_gp, _Recorder(ba, 3) as r_ba, \
+                    _Recorder(tri, 1) as r_tri, \
+                    contextlib.redirect_stdout(text):
+                t0 = time.perf_counter()
+                rc = cli(["mapper", "--database_path", db, "--output_path",
+                          os.path.join(tmp, "tempdata")] + flags, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            gm.global_mapper_solve, gp.global_positioning = solve, gp_fn
+            ba.bundle_adjustment = ba_fn
+        counts["D tail"] = read_counts()
+    for line in text.getvalue().splitlines():
+        log(f"[smoke]   {line}")
+    if rc != 0:
+        raise AssertionError(f"scene D tail: exit code {rc}")
+    res = result[0]
+    out = text.getvalue()
+
+    def logged(pattern):
+        return [int(x) for x in re.search(pattern, out).groups()]
+
+    gp_obs, positioned = logged(r"global positioning: (\d+) observations, "
+                                r"(\d+) tracks")
+    ba_obs, = logged(r"bundle adjustment: (\d+) observations")
+    tri_obs, = logged(r"retriangulation: (\d+) observations")
+    clusters, registered = logged(r"pruning: (\d+) strong clusters, "
+                                  r"(\d+) images")
+    got = dict(gp_obs=gp_obs, positioned=positioned, ba_obs=ba_obs,
+               tri_obs=tri_obs, clusters=clusters, registered=registered)
+    shapes = counts["D tail"]["sorted_segment_sum shapes"]
+    log(f"[smoke] scene D tail: set-up {t_set:.2f} s, mapper wall "
+        f"{wall:.2f} s; stages (s): "
+        f"{ {k: round(v, 3) for k, v in sorted(timer.totals.items())} }")
+    log(f"[smoke] scene D tail counts {got} (JAX package {TAIL_D}); "
+        f"sorted_segment_sum launches {counts['D tail']['sorted_segment_sum']}"
+        f" by shape {shapes}; host reads of the BA LM loops "
+        f"{adjusting.host_reads} ({adjusting.host_reads // 2} LM steps)")
+    for k, want in TAIL_D.items():
+        if abs(got[k] - want) > TAIL_D_TOL["count"] * want:
+            raise AssertionError(f"scene D tail: {k} {got[k]} vs {want}")
+    if len(res.obs_image) != tri_obs or int(res.registered.sum()) != (
+            registered):
+        raise AssertionError("scene D tail: the result disagrees with its "
+                             "log")
+    want_shapes = {f"f64 D={d}" for d in (1, 3, 6, 9, 12, 16, 36)}
+    if not want_shapes <= {k for k, v in shapes.items() if v > 0}:
+        raise AssertionError(f"scene D tail: a segment-sum shape never "
+                             f"launched: {shapes}")
+
+    # the JAX package's focal and poses, and ground truth
+    focal = float(res.focals[0])
+    R_ref, c_ref = tail_poses(TAIL_D_POSES)
+    c = -np.einsum("nba,nb->na", res.R_global, res.t_global)
+    dR = float(np.abs(res.R_global - R_ref).max())
+    dc = float(np.abs(c - c_ref).max())
+    gt = tail_gt_errors(res.R_global, res.t_global, scD)
+    log(f"[smoke] scene D tail: focal {focal!r} (JAX package "
+        f"{TAIL_D_FOCAL!r}, true {SCENE_D_CAMERA['f']}); R_global "
+        f"{dR:.2e} and centres {dc:.2e} from the JAX package's; against GT "
+        f"{gt} (JAX package {TAIL_D_GT}); finite tracks "
+        f"{int(np.isfinite(res.xyz).all(axis=1).sum())} of {res.n_tracks}")
+    if abs(focal - TAIL_D_FOCAL) > TAIL_D_TOL["focal"] * TAIL_D_FOCAL:
+        raise AssertionError(f"scene D tail: focal {focal}")
+    if not (dR <= TAIL_D_TOL["R"] and dc <= TAIL_D_TOL["centre"]):
+        raise AssertionError(f"scene D tail: poses {dR:.2e} / {dc:.2e} "
+                             f"from the JAX package's")
+    for k, v in gt.items():
+        if not v <= ROT_SLACK * TAIL_D_GT[k]:
+            raise AssertionError(f"scene D tail: GT {k} {v:.3e} beyond "
+                                 f"{ROT_SLACK} x the JAX package's")
+
+    # a second call of each compute stage on the same inputs, traced: the
+    # same bits, and its launches, host reads and device busy time
+    for tag, fn, (a, k, first) in (("global_positioning", gp_fn,
+                                    gp_calls[0]),
+                                   ("bundle_adjustment", ba_fn,
+                                    ba_calls[0])):
+        again = []
+        t0 = time.perf_counter()
+        work = device_work(lambda: again.append(fn(*a, **k)))
+        wall_c = time.perf_counter() - t0
+        again = again[-1]
+        same = all(np.array_equal(np.asarray(x), np.asarray(y))
+                   for x, y in zip(
+                       first.values() if isinstance(first, dict) else first,
+                       again.values() if isinstance(again, dict) else again))
+        log(f"[smoke] scene D tail: a second {tag} call, traced "
+            f"({wall_c:.2f} s): the same bits {same}; {work['launches']} "
+            f"kernel launches, {work['scalar_reads']} scalar reads, "
+            f"{work['d2h_copies']} device-to-host copies, device busy "
+            f"{work['busy_ms']:.1f} ms")
+        if not same:
+            raise AssertionError(f"scene D tail: two {tag} calls differ")
+        # the host reads: BATA's final cost alone (its 64 x 12 loops read
+        # nothing), and two a LM step in BA
+        reads = 1 if tag == "global_positioning" else 2 * again.iterations
+        if work["scalar_reads"] != reads:
+            raise AssertionError(f"scene D tail: {tag} read "
+                                 f"{work['scalar_reads']} scalars, expected "
+                                 f"{reads}")
+
+    # the kernel on the tail's real layouts
+    (dst, n_var), (src, _) = r_gp.layouts
+    (img, N), (trk, M), (cams, C) = r_ba.layouts
+    (ttrk, _), = r_tri.layouts
+    if not len(cams) == N < len(img):
+        raise AssertionError("scene D tail: a camera sum ran over the edges")
+    layouts = ([("BATA dst", dst, n_var, 3), ("BATA src", src, n_var, 3)]
+               + [("BA image", img, N, d) for d in (6, 12, 36)]
+               + [("BA track", trk, M, d) for d in (3, 9)]
+               + [("BA camera", cams, C, d) for d in (6, 36)]
+               + [("tri track", ttrk, M, d) for d in (1, 16)])
+    cases = hold_tail_segsum(layouts, dev)
+    for c in cases:
+        log(f"[smoke] tail segsum {c['tag']} (E={c['E']}, S={c['S']}, "
+            f"longest {c['longest']}): {c['ms']:.4f} ms plain "
+            f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
+            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); the CPU twin's "
+            f"bits, twice")
+    return cases
 
 
 def main() -> int:
@@ -1632,7 +2120,7 @@ def run(dev, card: str) -> int:
         "tcg_step_kernel")
     log(f"[smoke] scene C traced solve: tcg_step {step_in_C[0]:.4f} ms a "
         f"launch over {step_in_C[1]} launches")
-    del Q_C
+    watch_scene_c(Q_C, scC, res_C, dev)
 
     # ---- 8. xm2_solve(implicit=True) on scene B ----------------------------
     timer = PhaseTimer()
@@ -1664,7 +2152,17 @@ def run(dev, card: str) -> int:
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
         f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
 
-    # ---- 10. report -----------------------------------------------------------
+    # ---- 10. scene D: the mapper's tail stages 5-8 --------------------------
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tail_cases = run_scene_d_tail(dev, counts)
+    log(f"[smoke] scene D tail: phase wall {time.perf_counter() - t0:.1f} s, "
+        f"device memory peak "
+        f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
+        f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
+
+    # ---- 11. report -----------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
     dense_cases = [r for r in held.values() if "dense_ms" in r]
     step_err = worst([r[k] for r in held.values() if "dense_ms" not in r
@@ -1700,6 +2198,9 @@ def run(dev, card: str) -> int:
     csr_row = seg_row("csr", "sorted_segment_sum",
                       "xmtpu/ops/pallas_segsum.py:46", 3)
     csr_row["shapes"] = shapes
+    csr_row["tail"] = [{k: c[k] for k in ("tag", "E", "S", "D", "longest",
+                                          "ms", "plain_ms", "library_ms")}
+                       | {"bound_ms": c["bound"][0]} for c in tail_cases]
     kernels = [
         dict(name="tcg_step", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",

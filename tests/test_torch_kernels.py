@@ -515,6 +515,67 @@ def test_segsum_kernel_layouts_on_card(dtype, D, layout, S, unaligned,
     assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
 
 
+def _tail_layout(layout, seed=0):
+    """Segment ids of the mapper's tail stages at scene D's size, in edge
+    order: ``image`` — 200 images of about 1,300 observations each, sorted
+    (BA's image sums; stage 4 emits observations by image); ``one`` — one
+    segment of 259k rows (the longest image-sorted sum the shape allows);
+    ``track`` — 7,381 tracks of about 40 observations, in image order, so
+    the sum gathers through a permutation (BA's and triangulation's track
+    sums, BATA's sums over points)."""
+    rng = np.random.default_rng(seed)
+    if layout == "image":
+        return np.sort(rng.integers(0, 200, 259_000)), 200
+    if layout == "one":
+        return np.zeros(259_000, np.int64), 1
+    assert layout == "track"
+    return rng.integers(0, 7381, 297_217), 7381
+
+
+def test_segments_helper_is_index_add_in_edge_order():
+    """``Segments``: a stable permutation by id (none when sorted), then
+    the sorted sum: on the host the bits of ``index_add_`` over the edges
+    in their own order, any trailing shape, empty segments zero."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 50, 3000)
+    ids[ids == 7] = 8                                   # an empty segment
+    vals = torch.tensor(rng.normal(size=(3000, 3, 3)))
+    seg = ss.Segments(ids, 60, "cpu")
+    ref = torch.zeros(60, 3, 3, dtype=torch.float64).index_add_(
+        0, torch.tensor(ids), vals)
+    assert torch.equal(seg.sum(vals), ref)
+    assert seg.offsets.dtype == torch.int32
+    assert seg.offsets.tolist() == np.searchsorted(
+        np.sort(ids), np.arange(61)).tolist()
+    s_sorted = ss.Segments(np.sort(ids), 60, "cpu")
+    assert s_sorted.perm is None and seg.perm is not None
+    empty = ss.Segments(np.zeros(0, np.int64), 4, "cpu")
+    assert torch.equal(empty.sum(torch.zeros(0, 6, dtype=torch.float64)),
+                       torch.zeros(4, 6, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,D", [("image", 6), ("image", 9),
+                                      ("image", 16), ("image", 36),
+                                      ("one", 6), ("one", 36),
+                                      ("track", 3), ("track", 9),
+                                      ("track", 16)])
+def test_segsum_tail_shapes_on_card(layout, D, cuda_device):
+    """The tail stages' f64 shapes: long image segments at D = 6 to 36, one
+    segment of 259k rows, and the track layout through ``Segments``' gather:
+    the CPU twin's bits, twice."""
+    ids, S = _tail_layout(layout, seed=D)
+    vals = np.random.default_rng(D).normal(size=(len(ids), D))
+    ref = ss.Segments(ids, S, "cpu").sum(torch.tensor(vals))
+    seg = ss.Segments(ids, S, cuda_device)
+    v = torch.tensor(vals, device=cuda_device)
+    n0 = ss.sorted_segment_sum.launches
+    a, b = seg.sum(v), seg.sum(v)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_sum.launches == n0 + 2
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+
+
 def _layout_ids(layout, E, S, sb, seed):
     """Sorted segment ids for the blocked-layout cases:
     ``random`` — uniform over [0, S) (sparse when E < S: empty blocks);

@@ -5,8 +5,11 @@ The mapper's stages 0-4 give equal ``MapperResult`` arrays (its compute
 stages agree far inside the pair filter's 10 degree margin, the rest is
 numpy) and equal tempdata files.  Every subcommand returns the same code
 and prints the same status and rank; primals agree within 1e-8 and the
-written ``R.bin``/``s.bin`` within 1e-6.  Stages 5-8 are not ported: a flag
-that turns one on raises ``NotImplementedError``.
+written ``R.bin``/``s.bin`` within 1e-6.  A flag that turns on one of
+stages 5-8, alone or with the others and their option groups, gives equal
+tempdata files and ``MapperResult`` arrays equal but for the refined poses,
+points and focals, which agree within 1e-6 of their scale
+(``tests/test_torch_mapper_tail.py`` says why).
 """
 
 import filecmp
@@ -18,6 +21,7 @@ import pytest
 
 import chip_smoke
 from tests.test_colmap_db import _ring_scene, _write_scene_db
+from tests.test_torch_mapper_tail import _assert_tail_matches
 from xmtpu.__main__ import main as j_main
 from xmtpu.pipeline import colmap_db as jdb
 from xmtpu.pipeline import global_mapper as jgm
@@ -180,7 +184,31 @@ def test_export_tempdata_files_equal(tmp_path):
     ["--ViewGraphCalib.thres_two_view_error", "1.5",
      "--RelPoseEstimation.max_epipolar_error", "2.0",
      "--Thresholds.max_rotation_error", "5", "--skip_pruning", "1"],
-    ["--ba_iteration_num", "5", "--retriangulation_iteration_num", "2"]])
+    ["--ba_iteration_num", "5", "--retriangulation_iteration_num", "2"],
+    # the tail's option groups, each reaching its stage in both packages
+    ["--skip_global_positioning", "0", "--skip_bundle_adjustment", "0",
+     "--skip_retriangulation", "0", "--skip_pruning", "0",
+     "--GlobalPositioning.max_num_iterations", "32",
+     "--GlobalPositioning.thres_loss_function", "0.2",
+     "--GlobalPositioning.optimize_points", "1",
+     "--GlobalPositioning.optimize_scales", "1",
+     "--BundleAdjustment.max_num_iterations", "3",
+     "--BundleAdjustment.thres_loss_function", "2.0",
+     "--BundleAdjustment.optimize_intrinsics", "0",
+     "--BundleAdjustment.optimize_points", "1",
+     "--ba_iteration_num", "2", "--Triangulation.min_angle", "2.0",
+     "--Triangulation.complete_max_reproj_error", "10",
+     "--Triangulation.merge_max_reproj_error", "10",
+     "--Triangulation.min_num_matches", "10",
+     "--retriangulation_iteration_num", "2"],
+    ["--skip_global_positioning", "0", "--skip_bundle_adjustment", "0",
+     "--GlobalPositioning.optimize_positions", "1",
+     "--GlobalPositioning.optimize_scales", "0",
+     "--BundleAdjustment.optimize_rotations", "0",
+     "--BundleAdjustment.optimize_translation", "0",
+     "--BundleAdjustment.max_num_iterations", "5", "--ba_iteration_num", "1"],
+    ["--skip_global_positioning", "0", "--skip_pruning", "0",
+     "--GlobalPositioning.optimize_positions", "0"]])
 def test_mapper_subcommand_matches(tmp_path, flags, capsys):
     db = _ring_db(tmp_path)
     out = {}
@@ -200,16 +228,22 @@ def test_mapper_subcommand_matches(tmp_path, flags, capsys):
 @pytest.mark.parametrize("flag", ["skip_global_positioning",
                                   "skip_bundle_adjustment",
                                   "skip_retriangulation", "skip_pruning"])
-def test_tail_stage_flags_raise(tmp_path, flag):
-    db = _ring_db(tmp_path, n_cams=4, n_pts=20)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_main(["mapper", "--database_path", db, "--output_path",
-                str(tmp_path / "out"), "--" + flag, "0"], device="cpu")
-    assert not (tmp_path / "out").exists()
-    vg = tdb.database_to_view_graph(tdb.read_database(db))
-    with pytest.raises(NotImplementedError, match="stages 5-8"):
-        tgm.global_mapper_solve(vg, tgm.GlobalMapperOptions(**{flag: False}),
-                                device="cpu")
+def test_tail_stage_flags_match(tmp_path, flag, capsys):
+    """One tail stage turned on: both packages' ``main(["mapper", ...])``
+    write equal tempdata, and their ``global_mapper_solve`` results agree."""
+    db = _ring_db(tmp_path, seed=9, n_cams=5, n_pts=30)
+    for tag, main, kw in (("j", j_main, {}), ("t", t_main,
+                                                {"device": "cpu"})):
+        assert main(["mapper", "--database_path", db, "--output_path",
+                     str(tmp_path / tag), "--" + flag, "0"], **kw) == 0
+    capsys.readouterr()
+    for name in TEMPDATA:
+        assert filecmp.cmp(tmp_path / "j" / name, tmp_path / "t" / name,
+                           shallow=False), name
+    rj, rt, _, _ = _solve_both(db, jgm.GlobalMapperOptions(**{flag: False}),
+                               tgm.GlobalMapperOptions(**{flag: False}))
+    _assert_tail_matches(rj, rt)
+    assert rt.R_global is not None
 
 
 @pytest.fixture(scope="module")

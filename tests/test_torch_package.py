@@ -36,7 +36,13 @@ MODULES = ["xmtpu_torch", "xmtpu_torch.XM", "xmtpu_torch.config",
            "xmtpu_torch.pipeline.refine",
            "xmtpu_torch.pipeline.rotation_averaging",
            "xmtpu_torch.pipeline.undistort", "xmtpu_torch.pipeline.viewgraph",
-           "xmtpu_torch.pipeline.visualization", "chip_smoke"]
+           "xmtpu_torch.pipeline.visualization",
+           "xmtpu_torch.pipeline.global_positioning",
+           "xmtpu_torch.pipeline.bundle_adjustment",
+           "xmtpu_torch.pipeline.triangulation",
+           "xmtpu_torch.pipeline.track_filter",
+           "xmtpu_torch.pipeline.normalize", "xmtpu_torch.pipeline.gravity",
+           "xmtpu_torch.version", "chip_smoke"]
 
 
 def _run(code, cwd=ROOT):
@@ -100,7 +106,10 @@ def _tiny(tmp_path):
                                    "main mapper", "global_mapper_solve",
                                    "calibrate_view_graph",
                                    "rotation_averaging", "filter_pairs",
-                                   "l1_solve_dense"])
+                                   "l1_solve_dense", "global_positioning",
+                                   "bundle_adjustment",
+                                   "run_bundle_adjustment",
+                                   "triangulate_tracks", "retriangulate"])
 def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     import xmtpu_torch
     from xmtpu_torch.__main__ import main
@@ -112,8 +121,14 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     from xmtpu_torch.pipeline.rotation_averaging import (filter_pairs,
                                                          rotation_averaging)
     from xmtpu_torch.pipeline.xm2 import xm2_solve
+    from xmtpu_torch.pipeline import bundle_adjustment as ba
+    from xmtpu_torch.pipeline import triangulation as tri
+    from xmtpu_torch.pipeline.global_positioning import global_positioning
 
     sc = _tiny(tmp_path)
+    two = (np.array([0, 1]), np.zeros((2, 2)), np.array([0, 0]),
+           np.tile(np.eye(3), (2, 1, 1)), np.zeros((2, 3)), np.zeros((1, 3)),
+           np.array([[1.0, 1.0, 0, 0, 0, 0, 0, 0]]), [0, 0])
     calls = {
         "solve_arrays": lambda: xmtpu_torch.solve_arrays(np.eye(12)),
         "solve": lambda: xmtpu_torch.solve(str(tmp_path)),
@@ -139,6 +154,15 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
         "filter_pairs": lambda: filter_pairs(np.array([[0, 1]]),
                                              np.eye(3)[None], 2),
         "l1_solve_dense": lambda: l1_solve_dense(np.eye(2), np.ones(2)),
+        "global_positioning": lambda: global_positioning(
+            [0], [1], np.ones((1, 3)), 1, 1),
+        "bundle_adjustment": lambda: ba.bundle_adjustment(*two),
+        "run_bundle_adjustment": lambda: ba.run_bundle_adjustment(*two),
+        "triangulate_tracks": lambda: tri.triangulate_tracks(
+            [0, 1], [0, 0], np.zeros((2, 2)), np.tile(np.eye(3), (2, 1, 1)),
+            np.zeros((2, 3)), 1),
+        "retriangulate": lambda: tri.retriangulate(*two[:5], two[6],
+                                                   two[7]),
     }
     for cmd in ("solve", "solve-rank3", "recover", "certify"):
         calls[f"main {cmd}"] = lambda cmd=cmd: main([cmd, str(tmp_path)])

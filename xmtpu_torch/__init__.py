@@ -8,10 +8,14 @@ Pallas TPU kernels replaced by hand-written CUDA C++ kernels for ``sm_90a``
 Ported so far: the certified dense rank staircase (``.bin`` I/O, dense
 ``Q`` assembly, the product manifold, the RTR-tCG trust region with its
 mixed f32/f64 ladder — f32 tCG iterations through the fused kernels — the
-dense dual certificate and the rank staircase), and the implicit path past
+dense dual certificate and the rank staircase); the implicit path past
 dense memory (the factored ``SchurQ`` operator and its two-float variants,
 with every sorted segment sum on the card through a hand-written kernel, the
-matvec certificate, view-graph cleanup, recovery and the XM^2 pipeline).
+matvec certificate, view-graph cleanup, recovery and the XM^2 pipeline);
+and XM-SfM's mapper (``python -m xmtpu_torch`` with its six subcommands,
+the COLMAP-database mapper's stages 0-4, and its tail stages 5-8: global
+positioning, bundle adjustment, retriangulation and pruning, whose segment
+sums run through the same kernel).
 
 Entry points take ``device=None``, meaning the CUDA card; they raise when no
 card is present unless the caller passes ``device="cpu"``.  The package
@@ -26,6 +30,8 @@ import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+from xmtpu_torch.version import __version__  # noqa: E402
 
 from xmtpu_torch.io.bin_format import (  # noqa: E402
     load_matrix_from_bin,
@@ -46,8 +52,8 @@ from xmtpu_torch.assembly.creatematrix import (  # noqa: E402
     create_matrix,
     create_matrix_arrays,
 )
-
-__version__ = "0.1.0"
+from xmtpu_torch.pipeline.recover import recover_XM  # noqa: E402
+from xmtpu_torch.pipeline.graph import checklandmarks, delete_threshold  # noqa: E402
 
 __all__ = [
     "__version__",
@@ -66,4 +72,7 @@ __all__ = [
     "CertificateResult",
     "create_matrix",
     "create_matrix_arrays",
+    "recover_XM",
+    "checklandmarks",
+    "delete_threshold",
 ]

@@ -10,8 +10,9 @@
 
 Every subcommand but ``info`` runs on the CUDA card and raises without one;
 ``main(argv, device="cpu")`` runs it on the host.  ``mapper`` runs the
-glomap-mapper replacement's stages 0-4 (``global_mapper_solve``); a flag that
-turns on one of stages 5-8 raises ``NotImplementedError`` (not ported yet).
+glomap-mapper replacement (``global_mapper_solve``): stages 0-4, and stages
+5-8 (global positioning, bundle adjustment, retriangulation, pruning) where
+their ``--skip_*`` flags are 0.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ _MAPPER_FLAGS = [
     ("skip_bundle_adjustment", _bool, "mapper", "skip_bundle_adjustment"),
     ("skip_retriangulation", _bool, "mapper", "skip_retriangulation"),
     ("skip_pruning", _bool, "mapper", "skip_pruning"),
-    ("ba_iteration_num", int, "ba", "num_iteration_bundle_adjustment"),
-    ("retriangulation_iteration_num", int, "tri",
+    ("ba_iteration_num", int, "mapper", "num_iteration_bundle_adjustment"),
+    ("retriangulation_iteration_num", int, "mapper",
      "num_iteration_retriangulation"),
     ("ViewGraphCalib.thres_lower_ratio", float, "calib",
      "thres_lower_ratio"),
@@ -95,13 +96,12 @@ _MAPPER_FLAGS = [
 
 
 def _mapper_options(args):
-    """Assemble GlobalMapperOptions from the parsed namespaced flags.  The
-    flags of stages 5-7 (global positioning, bundle adjustment,
-    triangulation, and the bundle-adjustment and retriangulation iteration
-    counts) are accepted and left out: those stages are not ported and
-    their skip flags raise."""
+    """Assemble GlobalMapperOptions from the parsed namespaced flags."""
+    from xmtpu_torch.pipeline.bundle_adjustment import BundleAdjusterOptions
     from xmtpu_torch.pipeline.calibration import CalibrationOptions
     from xmtpu_torch.pipeline.global_mapper import GlobalMapperOptions
+    from xmtpu_torch.pipeline.global_positioning import PositionerOptions
+    from xmtpu_torch.pipeline.triangulation import TriangulatorOptions
     from xmtpu_torch.pipeline.viewgraph import InlierThresholds
 
     groups = {"mapper": {}, "calib": {}, "gp": {}, "ba": {}, "tri": {},
@@ -114,6 +114,12 @@ def _mapper_options(args):
     opts = GlobalMapperOptions(**groups["mapper"])
     if groups["calib"]:
         opts.calibration = CalibrationOptions(**groups["calib"])
+    if groups["gp"]:
+        opts.positioner = PositionerOptions(**groups["gp"])
+    if groups["ba"]:
+        opts.bundle = BundleAdjusterOptions(**groups["ba"])
+    if groups["tri"]:
+        opts.triangulator = TriangulatorOptions(**groups["tri"])
     if groups["thresholds"]:
         opts.inlier_thresholds = InlierThresholds(**groups["thresholds"])
     return opts
@@ -151,7 +157,7 @@ def main(argv=None, device=None):
 
     p = sub.add_parser(
         "mapper", help="glomap-mapper replacement: COLMAP database.db -> "
-        "view-graph stages 0-4 -> tempdata export")
+        "view-graph stages 0-4 (optionally 5-8) -> tempdata export")
     p.add_argument("--database_path", required=True)
     p.add_argument("--output_path", required=True,
                    help="directory for output/filename/relative_pose.txt")

@@ -85,6 +85,36 @@ def schurq_from_numpy(x, device=None, kind: "str | None" = None):
     return q
 
 
+_OPTION_CLASSES = {
+    "PositionerOptions": "xmtpu_torch.pipeline.global_positioning",
+    "BundleAdjusterOptions": "xmtpu_torch.pipeline.bundle_adjustment",
+    "TriangulatorOptions": "xmtpu_torch.pipeline.triangulation",
+    "GravityRefinerOptions": "xmtpu_torch.pipeline.gravity",
+}
+
+
+def options_from_reference(x, kind: "str | None" = None):
+    """An ``xmtpu`` options dataclass of the mapper's tail stages
+    (``PositionerOptions``, ``BundleAdjusterOptions``,
+    ``TriangulatorOptions`` or ``GravityRefinerOptions``: the dataclass
+    itself, or a dict of its fields with ``kind`` naming the class) as the
+    port's dataclass of the same name, field by field.  A field the port's
+    class does not have raises ``ValueError``."""
+    import importlib
+
+    name = kind or type(x).__name__
+    if name not in _OPTION_CLASSES:
+        raise ValueError(f"options_from_reference: no port class {name!r}")
+    cls = getattr(importlib.import_module(_OPTION_CLASSES[name]), name)
+    d = _fields(x)
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - known)
+    if unknown:
+        raise ValueError(f"options_from_reference: {name} has no field "
+                         f"{unknown}")
+    return cls(**d)
+
+
 def tr_state_from_numpy(x, device=None):
     """Map the arrays of an ``xmtpu`` ``TRState``, ``TRResult`` or
     ``SolveResult`` (a NamedTuple, or a dict of its fields) into the port's

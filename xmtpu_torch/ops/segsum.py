@@ -19,6 +19,9 @@ sums over edges kept sorted by segment.  Two kernels in
   order.
 
 The plain twin of both is ``torch.zeros(S, D).index_add_(0, ids, vals)``.
+:class:`Segments` sums rows by ids that need not be sorted (the scatters of
+the mapper's tail stages) through ``sorted_segment_sum``, over one stable
+permutation built once per solve.
 Wrapper rule (as in ``ops/fused_tcg.py``): CPU tensors take the twin; CUDA
 tensors launch the kernel (counted in the wrapper's ``launches``) or raise.
 
@@ -278,3 +281,38 @@ def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
 
 
 sorted_segment_sum_blocked.launches = 0
+
+
+class Segments:
+    """Sums of per-edge rows by an id that need not be sorted (the scatters
+    of the mapper's tail stages), through :func:`sorted_segment_sum`.
+
+    Built once per solve on the host: one stable ``np.argsort`` of ``ids``
+    (skipped when they are already sorted), the sorted ids and their CSR
+    offsets, all on ``device``.  :meth:`sum` gathers the rows through that
+    permutation and sums each segment in the callers' edge order, so on the
+    card the bits are the CPU twin's, the same on every run.  Rows of any
+    trailing shape are summed as flat rows of width ``D``.
+    """
+
+    def __init__(self, ids, num_segments: int, device):
+        ids = np.asarray(ids, dtype=np.int64)
+        perm = np.argsort(ids, kind="stable")
+        dev = torch.device(device)
+        self.num_segments = int(num_segments)
+        self.perm = (None if np.array_equal(perm, np.arange(len(ids)))
+                     else torch.as_tensor(perm, device=dev))
+        ids_s = ids[perm]
+        self.ids = torch.as_tensor(ids_s, device=dev)
+        self.offsets = torch.as_tensor(
+            np.searchsorted(ids_s, np.arange(self.num_segments + 1)),
+            dtype=torch.int32, device=dev)
+
+    def sum(self, vals: torch.Tensor) -> torch.Tensor:
+        """``(S,) + vals.shape[1:]`` segment sums of ``vals (E, ...)``."""
+        rows = vals.reshape(vals.shape[0], int(np.prod(vals.shape[1:])))
+        if self.perm is not None:
+            rows = rows[self.perm]
+        out = sorted_segment_sum(rows.contiguous(), self.ids,
+                                 self.num_segments, offsets=self.offsets)
+        return out.reshape((self.num_segments,) + tuple(vals.shape[1:]))

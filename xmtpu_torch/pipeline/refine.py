@@ -1,8 +1,8 @@
 """SO(3) exponential map of the pose refinement (``xmtpu/pipeline/refine.py``).
 
 Only ``_expm_so3`` (and its ``_hat``) is ported so far: rotation averaging
-updates its rotations with it.  The Gauss--Newton refinement itself comes
-with the pipeline's tail stages.
+and bundle adjustment update their rotations with it.  The Gauss--Newton
+refinement itself (``refine_bundle``) is not ported yet.
 """
 
 from __future__ import annotations
