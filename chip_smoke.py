@@ -73,7 +73,23 @@ Phases (any failure exits non-zero; no phase is caught):
    triangulation's tracks) the CPU twin's bits twice, timed beside
    ``index_add_``; per-stage seconds, launches by shape, the BA loops' host
    reads and the phase's device memory peak;
-11. print the kernels' JSON line, the card's name and power limit, and the
+11. XM-SfM's last stage on scene D (``examples/05_refine.py``'s flow):
+   phase 9's lifted observations with a thirtieth of the rows moved as
+   planted outliers, ``relpose_filter`` with phase 9's exported relative
+   poses (kept and dropped counts against the JAX package's), ``xm2_solve``
+   at its defaults (rank and primal against the JAX package's) and
+   ``refine_bundle`` on its output: LM steps, final cost and the refined
+   rotations and centres against the JAX package's, GT errors within 1.5x
+   of its, the mean reprojection error falling, one host read a LM step and
+   ``sorted_segment_sum`` at the refine's f64 shapes; the kernel on the
+   refine's two layouts (by frame, by landmark) the CPU twin's bits twice,
+   timed beside ``index_add_``; the tiny monodepth net on the card against
+   the port on the CPU and the JAX package's recorded numbers; a second
+   ``refine_bundle`` call with the same bits; and a short call (5 LM
+   steps) traced: its launches, no scalar read, no copy to the host beyond
+   one a LM step and the result, no ``index_add_`` kernel, its device busy
+   time by kernel;
+12. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 A kernel's ``ms`` is its time on the card per launch (profiler durations);
@@ -85,11 +101,13 @@ HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
 card's time for ``torch.matmul`` on the same W (the dense variant's
 product) or for one ``index_add_`` on the same tensors (segment sums, whose
 plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
-its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9 and 10,
+its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9, 10 and 11,
 each read just after its run with the counters set to 0 just before; the
 segment sum's launches are also counted by dtype and D (its ``shapes``),
 and its row on the ``kernels`` line shows the most launched shape, f32 D=3
-on the landmark ordering, with the tail's shapes under ``tail``.
+on the landmark ordering, with the tail's and the refine's layouts under
+``tail`` and ``refine`` (each with the launches of its dtype and D in that
+phase's main-path run).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -315,6 +333,158 @@ TAIL_D_POSES = (
     "+LRyQLnAozp0ZaS/ctp1QAFj4zoCQpi/IMx4QNlTpzll34u/Kol7QFB1zDnmAX+/yeR9QE74"
     "JzrppWW//gOAQBYICDo160u/WgSBQH7GmzqZdjK/pNSBQOuoLzobWxi/eIaCQNbHMToN4fy+"
     "sRmDQAcKk7kUaMi+dYKDQBqSCDqX35O+CeiDQNqdbjlMJj6+VxeEQBibTDp53am9")
+
+# scene D through XM-SfM's last stage (examples/05_refine.py's flow at
+# scene D's size; the reference's 5_test_ceres.py): phase 9's lifted
+# observations with a thirtieth of the rows moved by N(0, 1) * 5
+# (plant_outliers, the example's seed), relpose_filter with the export's
+# relative poses, xm2_solve at its defaults, refine_bundle on its output from
+# obs2d = landmarks[:, :2] / landmarks[:, 2:3].  Reference values: the JAX
+# package on the CPU at commit 63fd83d, the same flow from
+# parse_glomap_tempdata(T) of ``python -m xmtpu mapper --database_path D
+# --output_path T`` on write_scene_d's database, build_view_graph and
+# lift_dataset (GT depth of scene_d_depth): relpose_filter(edges, weights,
+# landmarks, rgbs, relposes)'s kept and dropped rows; xm2_solve(...,
+# verbose=False)'s last staircase solve (rank, primal) and
+# rotation_error_stats of its output (REFINE_D_XM2_ROT);
+# refine_bundle(out.edges, obs2d, out.R_real, out.t_est, out.p_est)'s LM
+# steps and final cost, tail_gt_errors of its poses (REFINE_D_GT) and, in
+# REFINE_D_POSES, its c2w rotations as rotation vectors and its camera
+# centres (N x 3 each, solved order, float32, base64; tail_poses decodes
+# them).  The refine's 100-step CG loses orthogonality on this problem's
+# conditioning, so the last bits of its products decide the trajectory:
+# over eight runs with its observations or its points moved by 1e-15 to
+# 4e-15 relative, the JAX package itself lands up to 5.4e-5 (final cost,
+# relative), 2.2e-5 (rotation entries) and 1.0e-4 (centres) from this run,
+# and the port on the CPU (this flow from its own mapper) 4.9e-6, 7.7e-6 and
+# 2.3e-5.  REFINE_D_TOL holds the refine at about three times the
+# reference's own spread, the counts within 1e-4 (the relative poses come
+# from the card's stage 3), XM^2's primal within RTOL_IMPLICIT
+REFINE_D_OUTLIERS = dict(seed=1, every=30, sigma=5.0)
+REFINE_D = dict(kept=98341, dropped=198876, rank=4,
+                primal=2.9339556150344563, iterations=50,
+                final_cost=0.07476225354117479)
+REFINE_D_XM2_ROT = dict(max=0.0009490327993792669,
+                        mean=0.0004999530401834997)
+REFINE_D_GT = dict(rot_max=0.06846485509490155, rot_mean=0.029753771492641627,
+                   centre_max=0.005737173396296902,
+                   centre_mean=0.0020858121045522152)
+REFINE_D_TOL = dict(count=1e-4, primal=RTOL_IMPLICIT, cost=2e-4, R=1e-4,
+                    centre=3e-4)
+REFINE_D_TRACED = 5    # LM steps of the traced refine call
+REFINE_D_POSES = (
+    "UVSuuTQgHjnYfs+2EZQ1OtPIyL/k+R+66SEWOmnx1L9mLRm6lmn9OUf64L83Zam5WDr1OQPT"
+    "7L8f1uC537/lOaNl+L8USUi6WFQfOo3QAcCbmh+6G9O/Oe07B8Bf7TC6pJcUOmVqDMAwLiK6"
+    "Cc4IOpBVEcA3d466u9r4OfH+FcDMsTy6dKIkOg1cGsCZNkK6Q6YKOb9mHsAA9Z26IH1mORgV"
+    "IsDUH7S6SVy6OXh3JcCQhL66TcfkORx0KMAHWoi6OADUOacVK8ABcoO6y1WYOYFbLcBMPLC6"
+    "bPOrOXhCL8BkEci6JBerOSDIMMA4ILu6bLiAOZ3yMcB+6Ka6MpbCOSHBMsAcg8y6I/SOOeQ7"
+    "M8DPpq26XpcuOcJdM8DymOq69dwxOXkwM8CjNs66pIapObm8MsB2hq66ds+ZOQgDMsB3Ip26"
+    "KDCTOZoLMcBg98K6rAXOOXzbL8A/wbW6AizCOTR5LsDloJS6/i6bOTTvLMCZ77m6Ee+zOeFF"
+    "K8COZLS6eDsMOmSGKcD77li6ycW8Ofq0J8CX/Ke6RQLlOQrWJcAd1I26TcT9OTr9I8AkS4C6"
+    "9Ib3OZAvIsBYH426tQcIOh5wIMA9jXK6TAwCOqbMHsDxgX+6qwSPOTtDHcBnDnW6fHM9OiLr"
+    "G8BoYS66HG1mOU++GsDBCXi6psK/ONLUGcC82ZW6DcUNOuckGcBgLUG6bDxLOf2iGMCchIm6"
+    "EoGlOcx7GMDQoY+6SfzCOYCZGMCTH5G6bwr/OfAGGcAWUlS6nuJIOuDaGcADn0q6TmCaOU3q"
+    "GsA89aG6Fb5xOdVYHMD4iKa6Cot8OZInHsDnHqG6DEYkOiZDIMDsj6W6Qo11Oke9IsD5yoe5"
+    "3JokOrCFJcDUb326LDKxOWGhKMCGpau6x9T6OdMNLMCk+Lq6Hi3UOTvKL8DOIGK6WZXjOXnD"
+    "M8CJ5qK6mD0UOgP/N8CvX0C6kOc8Ojp7PMC20iO66loBOq80QcBY8IG6Fm7SOFkTRsCfRjm6"
+    "bPM4uvgAR0CbkWw6x1/nucDaQUB4xjk6aWO7uWSVPEAcUbM54nkuuj89N0CSII06r+MKuuHX"
+    "MUBQ2YQ6LcH1uQFyLEDYnFY61c98uWIaJ0CjnFQ6NJ5bue/LIUAjLj86Y4LRuTaLHECFKXE6"
+    "t8jhuVRvF0D/bpU6BmzBuX11EkBU5046QUbQuRejDUDKF3c6xEGQuWgGCUDq1E864nQZugWd"
+    "BEAhRZw6OI3UuFhsAECgkTs6UOI7ug8A+T/2O8k6mNl7uRu78T8g9086LeYNuSz16j/vgzw6"
+    "mCOBuavR5D9Njw46muliuDBI3z9VcOo5HXS1uRhY2j9/KCc6VNCCuZYE1j++3WE6iVPVNrNU"
+    "0j+L+Pk5cgvzuQBJzz/8zF466VuhuabLzD/gXhw6I7QcuSzxyj/e5/U5tDQbuZ6iyT855dE5"
+    "F/WcuXrYyD+yEBo69sOhufGUyD82SCI6wFHBuEvFyD/jauw5i65vuctpyT+8ASU6zmrEuQdm"
+    "yj8PpCY6OGIgOHXCyz8slNY52+0fuS9lzT9bGhU6XM8suEY6zz9WB8I5p5aKuRVD0T+5GvE5"
+    "kAtoOQtk0z9q1+64e+3aNwKU1T8v1A06pHzKuNPJ1z9P+sM5+p/9ONL02T/9OeA4OGhaODwB"
+    "3D8MEhM6tHFQN33f3T8LEb45ozUBuTxu3z8MTmI60cUlN73N4D+MYQg6KQenucbS4T8y9T46"
+    "xr6XOQdn4j8kyGc5iQ+oOEKb4j8NdwA6LhESOk1b4j/vSGy5u/LOuJuj4T8xE805kUEVOgNI"
+    "4D+PfrO5Ii64uL9e3j8yO+Q5342qObf12z/M+I05oD64OMrR2D9ZCDs5F1DGueJA1T90rhU6"
+    "FFKVub/i0D9sFfI56b7vOUD7yz8BNTK5lBnEOTBoxj8h8I25gR0jOZVBwD92yRY476PbObaA"
+    "uT8ESPi46hqzOf0psj/prio667a8uOZgqj8jbmk5N+JOuVALoj+N4O05y2axOeVCmT+2a7m3"
+    "vzBUN3T9jz/TDcI4o+8rOUBchj+Od8G3CHmGuLXaeD9kUx84IZP0NatZZD9ZuPU4pVfNuYZ4"
+    "Tz/cGoQ5GQFvuREzOj/BiE859Q94uVK9JD9Ikjq4RyMRuX0xDz9ft/y2BAQ8uYBm8z4F/WW3"
+    "0M6CuXunyD4tySg45jHDuT1nnj7uZsA4N8osuXD9aT4PfuI3d9aSudFSGT7n8hU4A1OhuW03"
+    "lj2mKxk4fNPVuXdtS76w8r64KHSEucNdj70hABu4Y3+6uWC4C75IwLm3o2kNOoB8vL8eGbq5"
+    "KYETubttg772jG64qBodunrVnr41RD45D+NYucKxt77MAM64W6qOudPyzb5ENg+5RR56uIOv"
+    "4b48Bpq53hqWuROi8r4N8hy5CTa5uQtnAL9UK9u4+DgVueQiBr9FDDy5sxZGuQ6RCr+1eJi5"
+    "pmZZuY6XDb8o7Jm5bEBFuJJnD7/5uSi5wFC3uW7tD7+366W5AcsLueFCD79YNJe5q9+5uTxx"
+    "Db/PGa25gi9CuZ+pCr85TvK58UhYuDjZBr8KjWm5NxWfOTszAr+6P0m5stqPOD2J+b5Lucu5"
+    "d97kuI2D7b40rri5k68buKZc4L5grVW58wZjNxZY0r4WZDG5Q/OuOLbkw76BLdm4QOCCOVQJ"
+    "tb40Wvq3AbTgOAIopr5lORu52fJdOYDBl76k+yW5ybuzOVChib5NLwe4T7ErOPSueL6G3T25"
+    "b/MQOvILYL4+C/e4zuWLOXppSr5/i4a5jhxWued7N76Ir2S5pQRaOljwJr66MoG4+WlVOu71"
+    "G75Nolm5oQZCOnzLFL6roAy4whe2OXDdEb43iHO2SJQnOmEvFL4IwGW4pgc3Oq5yG74N+RC5"
+    "ldNzOtSxKL5U3b84opGpOeYVO745yKa43rplOvrBU74e+0w47ZkFOlzbcb5BvYe4Wne/OXsG"
+    "i768dhs54JxTOlscoL5sYpC5kCgEuQE0uL7glnO5JsuAuHca077je765/Es3One/8L6Ekpq5"
+    "KjukuOOUCL/TBDE5NfF3OArqGb/rYmS5pumfOU5vLL/MmbO5vqiuOfZIQL8P0WG5JC6mOVoM"
+    "Vb8wDgu6DACxORXIar9DMgm5e5fROQSPgL9WRKe5JH6DOaAgjL9IWw+6QBfAOW/0l79LVUm5"
+    "Gc7vORQHpL+cEp65XESKOZE8sL9jxu+5aXBsumBa77qjeRs6qsjRv7oGrLo9/lxAX7PZv+7q"
+    "h7qlG11A3t3hvyvKLLleE11ArArqv5J6RrpE7lxAaSjyvwLG9brLoVxAJEH6v7g/nLplKFxA"
+    "yy0BwDRJoLqmfFtAXTMFwLx8ZboYrFpAcEYJwPvkX7svdVlAHBsNwOeXoLr9l1hAQxARwNN4"
+    "hbr7WFdA7AEVwBXnOLvQ7lVALeEYwBLfi7tOMFRAo8YcwNZEV7uXp1JAgIcgwLUTCrumxFBA"
+    "LEokwIz3urpixk5APQgowPOUObt7lkxA7LwrwBtzWLsEYUpAu1IvwJcfKLvX7kdAE+kywAZa"
+    "HrvKY0VA0mA2wDFqTbu5qEJAxd45wBHUIrvk0j9A4y89wLxCg7tz4TxAtmdAwGYQUrvI0zlA"
+    "4rBDwEBZLrtDnTZAu9JGwFi/FbuhTzNAGelJwDuKQLsf2S9A6N1MwIQ2R7uqUSxAnbZPwMnG"
+    "G7sPsChA+3tSwJdmPruE8yRAbyxVwDkQM7suCiFAK9hXwLK1qboSIB1AUWBawL49MbtOERlA"
+    "c7NcwJ4JLLvw5RRAAf5ewG1wAbtRsRBAF0ZhwEdiHLseXAxAklJjwJrdELs/9wdArlBlwJcp"
+    "C7uPhANArxxnwE6LBLvY3/0/r+powLhdrrp7vvQ/AX5qwN/vJ7t2Vus/2ypswJKxV7u78+E/"
+    "Y65twB5h3rqgctg/MLtuwJG1Qbtoo84/yvBvwEn5M7uX+cQ/Cu9wwHXYKLtuHLs/c85xwIoO"
+    "47o7QrE/1dhywEDlvLoVeac/jV9zwOx4S7shc50/xOtzwMwCObtqb5M/6XB0wIQYOru8eIk/"
+    "krV0wLrcMbvAr34/Ofp0wDjfv7k3r2o/Agd1wO6oFLuzolY/nPJ0wJS1KbtDj0I/v7x0wJJ+"
+    "UbslYS4/fot0wCtRrrp5kBo/MAV0wEVLI7sMawY/0V1zwMplq7lzguU+I6RywPyGPrlcM74+"
+    "RftxwAS/lLqIVZc+rvJwwNGUVLl0YmE+qeVvwPkafLonshM+FphuwBQaGLmZfZE9dURtwIRj"
+    "ezrIqBi78NZrwB35o7o4FZi9o1NqwEIqI7rHkhW+l69owEqu3rnS8V2+m8lmwEnVzLkemZG+"
+    "X95kwCIKgTl0AbS++eliwLWjWbogsta+NcFgwAdayrrfcve+BnlewAwv07ljJQy/zipcwKJk"
+    "vrr69Bu/VLRZwNTwX7qiPCu/ECZXwGfnEbtOYzq/gIxUwAxZv7l3Rkm/la9RwMJqPbtWoFe/"
+    "kfROwB9hELrN7WS/NgxMwL+ahjkym3K/oA1JwC74nTiIVn+/cflFwLquJzo0w4W/S89CwBri"
+    "x7l0uou/gI4/wDDeibo8fJG/ITw8wPvWPjpB45a/v9w4wOXc4ro84Zu/2mU1wIYP4rlh2aC/"
+    "fOYxwL1nVDjJSqW/b1IuwBkanzlFi6m/ZLUqwBNSMbqvmK2/YAMnwPSiQLqePLG/hUcjwL3I"
+    "ojnsv7S/SH4fwOCVYroBu7e/VasbwDEDkbpRmrq/lNQXwH0/ZzorCb2/bPMTwBFODTggKL+/"
+    "9gcQwFLAhzl6GsG/txwMwHiAGbkIpcK/tCgIwMLxKzvJ98O/7icEwEpixDmU7sS/MiUAwNAu"
+    "FTnnh8W/li34v6birjojtsW/DiLwv3YN5DkNocW/6S7ov8bJLDoTO8W/LBfgvzHJf7r1zsS/"
+    "KwzYv8Xxh7mWycO/nQnQvxZlj7r5e8K/lhLIvwnFWzr6D8G/DBTAvygUiTisIL+/7Ce4vyBG"
+    "LjtB6by/NRewv4L9eLkxO7q/DmOovwCgQDuZh7e/3LWgv2sW1Lg7m7S/0OCYv6ifhTrjErG/"
+    "m1GRv0aElTr9oa2/VaOJv3ofGLoIMam//0mCv0rOebqjO6W/2Px1vyA+3jroi6C/YUJnvxgk"
+    "CjvHwJu/cv9Yv2pdODp4uJa/TcRKv/kZ6ToHZpG/wQ08vzyiIztBg4u/scgvv7SI3bl6u4W/"
+    "h4MivwxC7bkT/36/qt0Vv8441zoADnK/lSAJvxYRU7fd/2S/hM35vmMJRTptNle/ZXXivsaE"
+    "pLh510i/C8vKvi+J1rnIJDq/DMW0vsPW2brr+yq/Ht+evqVRlbroeRu/9QmKvg2DerqCdQu/"
+    "P+lrvn+HNrptfPa+izFGvrn4iLouG9W+/+ggvnzPn7r+G7O+qQ35vclgzrqoNZC+3R+1vZMB"
+    "SLrl8Fm+bfBqvc8zuLq+DBK+tyzhvP4j3rq//JG9+caSPeMrCLuAmGI+jZjPPBHQxLotg5c9"
+    "dS5LPSAiB7uZ3hc+Zp/Jv1XbTbrnlVxAgKq6PZCejLrOypg+6bbhPf/yOLsYDcE+PYoBPhL1"
+    "r7qEPec+7bwPPihbv7qnXwc/c2AdPuGRnbpGZBs/axQoPsfj87qCTC8/KzYwPgsKCbs/RkM/"
+    "+wU3Pm37q7pNClc/9sY7PgrCzLreT2s/ZwU+PlZd/7oCMX8/jlI/PmSqaro9r4k/I9A+PsOW"
+    "IbtXp5M/Whw7PqIwt7qVs50/aqE1PhV+J7ufiqc/NksvPlfuK7tzfbE/YJ4lPrC8w7qqWLs/"
+    "fj4aPgR3dbmsG8U/QC0MPkJpw7rKz84/FgX8PdxU+Lp/dtg/eNLYPapZ67p4CuI/y/ixPZPg"
+    "jrreYus/QYSIPR9VmLqyv/Q/wRszPY46dLm46/0/HSGbPPwgtrqPcwNA5He0uxFaebre9AdA"
+    "wWIKvfCJ8bnVWwxA3DKCvaqS4bqRqBBA8WjCvWc1hTgf5BRANdEBvk9QmLoBFBlA9t0lvnyQ"
+    "RLtFER1Ah+hNvlmIhTqy/iBAxAFyvpWiYzpX6iRA/POMvmbs3Tm1rChAqeSiviabQbrrTSxA"
+    "72K4vuwgr7mX3i9AbXTPvo2ulDh0UjNAQ8rlvjfQnDrGnTZAsFH+vkGzpbrKzTlAbU8Lv9tj"
+    "jzmZ7DxACzUYvzCVP7r13z9AQCQlvzSzOrpxvEJAVVcyv+BlgrmXX0VA8Jg/v+MVTbsq/0dA"
+    "yXRNv7DSUrtabEpA6lZbv4sPMrqUrUxAja5pvwiWILub305AXYJ4vw9JIruq0lBAnqWDv9ug"
+    "B7vphVJAvB+Lv4TWtLrZXVRAK6qSv80+CLv87lVAcIGav8+Cj7qndFdATheiv4eWg7rRilhA"
+    "Ct6pvxYwGburqFlAocSxv7IrZ7pKlVpAF625v4ZikroRcVtAeLPBv6Mo8LrqGFxA")
+
+# the tiny monodepth net on render_plane_scene's views: the JAX package's
+# TinyMonoDepthModel() (CPU, cv2's blur) at commit 63fd83d, per view
+# depth_net_summary: the mean log-depth, then depth and confidence at each
+# of DEPTH_NET_PIXELS (row, column); held within DEPTH_NET_RTOL of
+# max(1, |value|), as is the port on the card against the port on the CPU
+# (relative to each map's maximum)
+DEPTH_NET_SCENE = dict(n_views=4, size=192, seed=5)
+DEPTH_NET_PIXELS = ((40, 40), (96, 96), (150, 120))
+DEPTH_NET = (
+    (1.2704993103045525, 3.35367488861084, 0.2630186676979065,
+     3.535179853439331, 0.056401923298835754, 3.8286335468292236,
+     0.06547069549560547),
+    (1.2632031882010653, 3.3030178546905518, 0.7844609618186951,
+     3.5238494873046875, 0.08084539324045181, 3.8089818954467773,
+     0.08770082890987396),
+    (1.257085369977606, 3.2780954837799072, 0.8229672908782959,
+     3.512702465057373, 0.09039799869060516, 3.7833428382873535,
+     0.10319305211305618),
+    (1.2584346097527837, 3.2927560806274414, 0.3497569262981415,
+     3.514904022216797, 0.0929693877696991, 3.802901268005371,
+     0.0922577753663063))
+DEPTH_NET_RTOL = 1e-4
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
 # f64 FLOP/s outside the tensor cores
@@ -1239,10 +1409,13 @@ def scene_d_report(out, sc: SceneD):
 def device_work(fn, tries: int = 5):
     """Runs ``fn`` once under ``torch.profiler``: the kernels it launched
     on the card, its device-to-host copies, its scalar reads
-    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor) and the
-    summed durations of its device events (``busy_ms``).  A
-    traced run with no kernel or no copy recorded (the profiler now and
-    then drops a run's events) is taken again."""
+    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor), its
+    ``index_add_`` kernels, the summed durations of its device events
+    (``busy_ms``) and the six names that took most of them (``top``: name,
+    count, ms).  The profiler's raw events are read as they are (building
+    its event tree costs the host seconds a traced call).  A traced run
+    with no kernel or no copy recorded (the profiler now and then drops a
+    run's events) is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1253,17 +1426,26 @@ def device_work(fn, tries: int = 5):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ev = prof.events()
-        dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA]
-        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
-                      for e in dev_ev)
-        d2h = sum("DtoH" in e.name for e in dev_ev)
-        reads = sum(e.name == "aten::_local_scalar_dense" for e in ev
-                    if e.device_type == DeviceType.CPU)
-        busy = sum(e.time_range.end - e.time_range.start for e in dev_ev)
+        ev = prof.profiler.kineto_results.events()
+        dev_ev = [(e.name(), e.duration_ns()) for e in ev
+                  if e.device_type() == DeviceType.CUDA]
+        kernels = sum(not n.startswith(("Memcpy", "Memset"))
+                      for n, _ in dev_ev)
+        d2h = sum("DtoH" in n for n, _ in dev_ev)
+        reads = sum(e.name() == "aten::_local_scalar_dense" for e in ev
+                    if e.device_type() == DeviceType.CPU)
+        # index_add_'s CUDA kernels (ATen's indexFuncSmall/LargeIndex)
+        index_add = sum("indexFunc" in n for n, _ in dev_ev)
+        by_name = {}
+        for n, ns in dev_ev:
+            c, t = by_name.get(n, (0, 0))
+            by_name[n] = (c + 1, t + ns)
+        top = [(n[:60], c, t / 1e6) for n, (c, t) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])[:6]]
         if kernels and d2h:
             return dict(launches=kernels, d2h_copies=d2h, scalar_reads=reads,
-                        busy_ms=busy / 1e3)
+                        index_add=index_add,
+                        busy_ms=sum(ns for _, ns in dev_ev) / 1e6, top=top)
     raise RuntimeError("device_work: the profiler recorded no kernel or no "
                        f"copy, {tries} times")
 
@@ -1334,7 +1516,9 @@ def run_scene_d(dev, counts):
     xmtpu_torch mapper`` twice (equal tempdata), held against the JAX
     package's counts; ``filter_pairs``' launches and host reads; lifting
     with GT depth; ``xm2_solve`` dense and implicit, held against the JAX
-    package's runs; ``calibrate_view_graph`` on the card."""
+    package's runs; ``calibrate_view_graph`` on the card.  Returns the
+    scene, the mapper's parsed export and the lifted observations, which
+    phase 11 refines."""
     import filecmp
     import tempfile
 
@@ -1517,20 +1701,25 @@ def run_scene_d(dev, counts):
     if not (abs(f_cal - f_true) <= 0.01 * f_true
             and abs(f_cal - CALIB_D) <= 1e-6 * CALIB_D):
         raise AssertionError(f"scene D calibration: focal {f_cal}")
+    return scD, exp, lifted
 
 
-def tail_gt_errors(R, t, sc: SceneD) -> dict:
-    """Cam_from_world poses (R, t) against scene D's GT: the rotation
-    errors (degrees) after the best global rotation, and the camera-centre
-    errors (metres) after the best similarity (Umeyama), max and mean."""
-    M = np.einsum("nba,nbc->ac", sc.R, R)
+def tail_gt_errors(R, t, sc: SceneD, frames=None) -> dict:
+    """Cam_from_world poses (R, t) against scene D's GT (of ``frames``, the
+    scene's frame of each row; all frames in order by default): the
+    rotation errors (degrees) after the best global rotation, and the
+    camera-centre errors (metres) after the best similarity (Umeyama), max
+    and mean."""
+    frames = np.arange(len(sc.R)) if frames is None else frames
+    R_gt, t_gt = sc.R[frames], sc.t[frames]
+    M = np.einsum("nba,nbc->ac", R_gt, R)
     U, _, Vt = np.linalg.svd(M)
     G = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
-    D = np.einsum("nab,bc,ndc->nad", sc.R, G, R)
+    D = np.einsum("nab,bc,ndc->nad", R_gt, G, R)
     rot = np.degrees(np.arccos(np.clip(
         (np.trace(D, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)))
     c = -np.einsum("nba,nb->na", R, t)
-    c_gt = -np.einsum("nba,nb->na", sc.R, sc.t)
+    c_gt = -np.einsum("nba,nb->na", R_gt, t_gt)
     X, Y = c - c.mean(0), c_gt - c_gt.mean(0)
     U, S, Vt = np.linalg.svd(Y.T @ X / len(X))
     d = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
@@ -1841,6 +2030,305 @@ def run_scene_d_tail(dev, counts) -> list:
     return cases
 
 
+def plant_outliers(landmarks, seed: int):
+    """``examples/05_refine.py``'s outliers on lifted observations: a seeded
+    ``len // REFINE_D_OUTLIERS["every"]`` rows moved by N(0, 1) *
+    ``REFINE_D_OUTLIERS["sigma"]``.  Returns the moved copy and the rows'
+    mask."""
+    rng = np.random.default_rng(seed)
+    E = len(landmarks)
+    bad = rng.choice(E, size=E // REFINE_D_OUTLIERS["every"], replace=False)
+    out = landmarks.copy()
+    out[bad] += rng.normal(size=(len(bad), 3)) * REFINE_D_OUTLIERS["sigma"]
+    planted = np.zeros(E, dtype=bool)
+    planted[bad] = True
+    return out, planted
+
+
+def refine_frames(R_c2w_flat, centres, indices_all):
+    """An ``XM2Result``'s or ``RefineResult``'s c2w blocks and camera
+    centres (solved order) as cam_from_world ``(R, t)`` and the scene frame
+    of each, through ``indices_all``."""
+    N = centres.shape[1]
+    R_w2c = R_c2w_flat.reshape(3, N, 3).transpose(1, 2, 0)
+    t_w2c = -np.einsum("nab,bn->na", R_w2c, centres)
+    live = np.flatnonzero(indices_all > -1)
+    order = indices_all[live]
+    return R_w2c[order], t_w2c[order], live
+
+
+def mean_reprojection_error(edges, obs2d, R_c2w_flat, centres, p):
+    """Mean distance of the normalized observations from the projections
+    of (c2w blocks, camera centres, points (3, M)), as
+    ``tests/test_refine.py`` measures it."""
+    N = centres.shape[1]
+    R_w2c = R_c2w_flat.reshape(3, N, 3).transpose(1, 2, 0)
+    t_w2c = -np.einsum("nab,bn->na", R_w2c, centres)
+    f, l = edges[:, 0] - 1, edges[:, 1] - 1
+    x = np.einsum("eab,eb->ea", R_w2c[f], p.T[l]) + t_w2c[f]
+    return float(np.mean(np.linalg.norm(x[:, :2] / x[:, 2:3] - obs2d,
+                                        axis=1)))
+
+
+def render_plane_scene(n_views: int = 8, size: int = 192, seed: int = 5):
+    """Views of a textured 3-D plane with analytic depth and GT poses: a
+    copy of ``examples/04_learned_depth.py:render_scene`` (numpy only)."""
+    rng = np.random.default_rng(seed)
+    f = 0.9 * size
+    K = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1.0]])
+    tex = (rng.random((64, 64)) > 0.5).astype(np.float64)
+    tex = np.kron(tex, np.ones((8, 8)))  # blocky texture, SIFT-friendly
+    images, depths, R_gt, t_gt = [], [], [], []
+    n_plane = np.array([0.0, 0.0, 1.0])
+    for i in range(n_views):
+        ang = 0.15 * (i - n_views / 2) / n_views
+        ca, sa = np.cos(ang), np.sin(ang)
+        R = np.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]])
+        t = np.array([0.4 * i / n_views, 0.05 * np.sin(i), -2.5 - 0.1 * i])
+        uu, vv = np.meshgrid(np.arange(size), np.arange(size))
+        rays = np.linalg.inv(K) @ np.stack(
+            [uu.ravel(), vv.ravel(), np.ones(size * size)])
+        rays_w = R @ rays
+        nc = n_plane @ rays_w
+        d0 = n_plane @ (np.zeros(3) - t)
+        z = np.where(np.abs(nc) > 1e-9, d0 / nc, 0.0)
+        pw = t[:, None] + rays_w * z
+        ok = (z.reshape(size, size) > 0)
+        px = np.clip(((pw[0] + 3) * 80).astype(int) % 512, 0, 511)
+        py = np.clip(((pw[1] + 3) * 80).astype(int) % 512, 0, 511)
+        img = np.where(ok.ravel(),
+                       tex[py % tex.shape[0], px % tex.shape[1]], 0.0)
+        img8 = (img.reshape(size, size) * 255).astype(np.uint8)
+        images.append(np.stack([img8] * 3, axis=-1))
+        depth = z.reshape(size, size).copy()
+        depth[~ok] = 0.0
+        depths.append(depth)
+        R_gt.append(R)
+        t_gt.append(t)
+    return images, depths, np.stack(R_gt), np.stack(t_gt), K
+
+
+def depth_net_summary(depth, conf) -> list:
+    """The numbers of one view that are held against the JAX package: the
+    mean log-depth, then depth and confidence at ``DEPTH_NET_PIXELS``."""
+    out = [float(np.mean(np.log(depth)))]
+    for v, u in DEPTH_NET_PIXELS:
+        out += [float(depth[v, u]), float(conf[v, u])]
+    return out
+
+
+def hold_depth_net(dev) -> dict:
+    """The tiny monodepth net on the card: ``TinyMonoDepthModel`` on
+    ``render_plane_scene``'s views against the port on the CPU (depth and
+    confidence within ``DEPTH_NET_RTOL`` of the maps' maxima) and against
+    the JAX package's recorded numbers (``DEPTH_NET``, within the same
+    tolerance); its ms a view."""
+    import torch
+
+    from xmtpu_torch.pipeline.depth_net import TinyMonoDepthModel
+
+    images = render_plane_scene(**DEPTH_NET_SCENE)[0]
+    card, host = TinyMonoDepthModel(device=dev), TinyMonoDepthModel(
+        device="cpu")
+    worst = dict(cpu=0.0, jax=0.0)
+    for k, im in enumerate(images):
+        d, c = card.infer(im)
+        d_h, c_h = host.infer(im)
+        worst["cpu"] = max(worst["cpu"],
+                           float(np.abs(d - d_h).max() / np.abs(d_h).max()),
+                           float(np.abs(c - c_h).max() / np.abs(c_h).max()))
+        got, want = np.array(depth_net_summary(d, c)), np.array(DEPTH_NET[k])
+        worst["jax"] = max(worst["jax"], float(
+            np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0))))
+    card.infer(images[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for im in images:
+        card.infer(im)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(images) * 1e3
+    log(f"[smoke] depth net on the card: {len(images)} views "
+        f"{images[0].shape[:2]}, {ms:.2f} ms a view (host clock, maps back "
+        f"on the host); the CPU port {worst['cpu']:.2e} and the JAX "
+        f"package's numbers {worst['jax']:.2e} away at most")
+    if not (worst["cpu"] <= DEPTH_NET_RTOL and worst["jax"] <= DEPTH_NET_RTOL):
+        raise AssertionError(f"depth net: {worst} beyond {DEPTH_NET_RTOL}")
+    return dict(ms=ms, **worst)
+
+
+def run_refine_d(dev, counts, scD, exp, lifted) -> list:
+    """Phase 11: XM-SfM's last stage on scene D (``examples/05_refine.py``'s
+    flow): planted outliers, ``relpose_filter`` with the relative poses of
+    phase 9's export, ``xm2_solve`` at its defaults and ``refine_bundle``
+    on the card, held against the JAX package and ground truth; the
+    segment-sum kernel on the refine's two layouts; the tiny depth net; a
+    second ``refine_bundle`` call repeating its bits and a short one traced.
+    Returns the kernel's cases on the refine's layouts."""
+    import torch
+
+    from xmtpu_torch.pipeline import refine
+    from xmtpu_torch.pipeline import xm2
+    from xmtpu_torch.pipeline.relpose_filter import relpose_filter
+
+    edges, weights, landmarks = lifted
+    landmarks, planted = plant_outliers(landmarks, REFINE_D_OUTLIERS["seed"])
+    rows = np.zeros((len(edges), 3))
+    rows[:, 0] = np.arange(len(edges))          # rgbs carry the row ids
+    t0 = time.perf_counter()
+    e2, w2, l2, r2 = relpose_filter(edges, weights, landmarks, rows,
+                                    exp.relposes, verbose=False)
+    t_rf = time.perf_counter() - t0
+    kept = np.zeros(len(edges), dtype=bool)
+    kept[r2[:, 0].astype(np.int64)] = True
+    got = dict(kept=int(kept.sum()), dropped=int((~kept).sum()))
+    log(f"[smoke] scene D relpose_filter ({len(edges)} observations, "
+        f"{int(planted.sum())} planted outliers, {len(exp.relposes)} "
+        f"relative poses): {t_rf:.2f} s; {got} (JAX package "
+        f"{ {k: REFINE_D[k] for k in got} }); planted removed "
+        f"{(~kept & planted).sum() / planted.sum():.4f}, clean removed "
+        f"{(~kept & ~planted).sum() / (~planted).sum():.4f}")
+    for k, v in got.items():
+        if abs(v - REFINE_D[k]) > REFINE_D_TOL["count"] * REFINE_D[k]:
+            raise AssertionError(f"scene D relpose_filter: {k} {v} vs "
+                                 f"{REFINE_D[k]}")
+
+    out, last, ranks, timer, wall = run_xm2_d(xm2, (e2, w2, l2), exp.N,
+                                              exp.M, dev)
+    rot = rotation_error_stats(out.R_real, scD.R.transpose(0, 2, 1),
+                               out.indices_all)
+    log(f"[smoke] scene D refine: xm2_solve wall {wall:.2f} s, ranks "
+        f"{ranks}, certified {last.certified} at rank {last.rank}, primal "
+        f"{last.primal!r} (JAX package {REFINE_D['primal']!r}, rank "
+        f"{REFINE_D['rank']}), lam {out.lam}, rotation errors {rot} "
+        f"(JAX package {REFINE_D_XM2_ROT})")
+    if not (last.certified and last.rank == REFINE_D["rank"]):
+        raise AssertionError(f"scene D refine: XM^2 not certified at rank "
+                             f"{REFINE_D['rank']}")
+    if abs(last.primal - REFINE_D["primal"]) > (REFINE_D_TOL["primal"]
+                                               * REFINE_D["primal"]):
+        raise AssertionError(f"scene D refine: XM^2 primal {last.primal}")
+    check_rotations("scene D refine XM^2", rot, REFINE_D_XM2_ROT)
+
+    obs2d = out.landmarks[:, :2] / out.landmarks[:, 2:3]
+    args = (out.edges, obs2d, out.R_real, out.t_est, out.p_est)
+    reset_counts()
+    refine.refine_bundle.host_reads = 0
+    with _Recorder(refine, 2) as rec:
+        t0 = time.perf_counter()
+        res = refine.refine_bundle(*args, device=dev)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+    counts["D refine"] = read_counts()
+    reads = refine.refine_bundle.host_reads
+    shapes = counts["D refine"]["sorted_segment_sum shapes"]
+    log(f"[smoke] scene D refine_bundle ({len(out.edges)} observations, "
+        f"{out.t_est.shape[1]} frames, {out.p_est.shape[1]} points): "
+        f"{t_ref:.2f} s, {res.iterations} LM steps, final cost "
+        f"{res.final_cost!r} (JAX package {REFINE_D['iterations']} steps, "
+        f"{REFINE_D['final_cost']!r}); host reads {reads}; "
+        f"sorted_segment_sum launches "
+        f"{counts['D refine']['sorted_segment_sum']} by shape {shapes}")
+    if reads != res.iterations:
+        raise AssertionError(f"scene D refine: {reads} host reads over "
+                             f"{res.iterations} LM steps")
+    if not {"f64 D=6", "f64 D=3"} <= {k for k, v in shapes.items() if v > 0}:
+        raise AssertionError(f"scene D refine: sums by {shapes}")
+
+    # the JAX package's run, and ground truth
+    R_ref, c_ref = tail_poses(REFINE_D_POSES)
+    N = res.t_est.shape[1]
+    R_c2w = res.R_est.reshape(3, N, 3).transpose(1, 0, 2)
+    dR = float(np.abs(R_c2w - R_ref).max())
+    dc = float(np.abs(res.t_est.T - c_ref).max())
+    dcost = abs(res.final_cost - REFINE_D["final_cost"]) / REFINE_D[
+        "final_cost"]
+    R, t, frames = refine_frames(res.R_est, res.t_est, out.indices_all)
+    gt = tail_gt_errors(R, t, scD, frames)
+    gt0 = tail_gt_errors(*refine_frames(out.R_real, out.t_est,
+                                        out.indices_all)[:2], scD, frames)
+    err0 = mean_reprojection_error(out.edges, obs2d, out.R_real, out.t_est,
+                                   out.p_est)
+    err1 = mean_reprojection_error(out.edges, obs2d, res.R_est, res.t_est,
+                                   res.p_est)
+    log(f"[smoke] scene D refine: final cost {dcost:.2e} relative, "
+        f"rotations {dR:.2e} and centres {dc:.2e} from the JAX package's; "
+        f"against GT {gt} (JAX package {REFINE_D_GT}; XM^2's output "
+        f"{gt0}); mean reprojection error {err0:.6e} -> {err1:.6e}")
+    if res.iterations != REFINE_D["iterations"] or dcost > REFINE_D_TOL[
+            "cost"]:
+        raise AssertionError(f"scene D refine: {res.iterations} LM steps, "
+                             f"final cost {res.final_cost}")
+    if not (dR <= REFINE_D_TOL["R"] and dc <= REFINE_D_TOL["centre"]):
+        raise AssertionError(f"scene D refine: poses {dR:.2e} / {dc:.2e} "
+                             f"from the JAX package's")
+    for k, v in gt.items():
+        if not v <= ROT_SLACK * REFINE_D_GT[k]:
+            raise AssertionError(f"scene D refine: GT {k} {v:.3e} beyond "
+                                 f"{ROT_SLACK} x the JAX package's")
+    if not err1 < err0:
+        raise AssertionError(f"scene D refine: reprojection error {err0} -> "
+                             f"{err1}")
+    log(f"[smoke] scene D refine steps (s): relpose_filter {t_rf:.2f}, "
+        f"xm2_solve {wall:.2f}, refine_bundle {t_ref:.2f}")
+
+    # the kernel on the refine's layouts: by frame (D = 6), by landmark
+    (frm, nf), (lmk, nl) = rec.layouts
+    cases = hold_tail_segsum([("refine frame", frm, nf, 6),
+                              ("refine landmark", lmk, nl, 3)], dev)
+    for c in cases:
+        log(f"[smoke] refine segsum {c['tag']} (E={c['E']}, S={c['S']}, "
+            f"longest {c['longest']}): {c['ms']:.4f} ms plain "
+            f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
+            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); the CPU twin's "
+            f"bits, twice")
+    hold_depth_net(dev)
+
+    # a second call on the same inputs gives the same bits
+    t0 = time.perf_counter()
+    again = refine.refine_bundle(*args, device=dev)
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(res, again))
+    log(f"[smoke] scene D refine_bundle, a second call ({t_again:.2f} s): "
+        f"the same bits {same}")
+    if not same:
+        raise AssertionError("scene D refine: two refine_bundle calls differ")
+
+    # the card's work of one short call (REFINE_D_TRACED LM steps), traced
+    # (tracing a whole call's ~170k launches took 34-43 s): its launches, no
+    # scalar read, no copy to the host beyond one a LM step and the result,
+    # no index_add_ kernel (the detector seen at work first), its device
+    # busy time by kernel
+    idx = torch.zeros(1 << 16, dtype=torch.int64, device=dev)
+    ones = torch.ones(1 << 16, device=dev)
+    probe = device_work(lambda: [torch.zeros(2, device=dev).index_add_(
+        0, idx, ones).cpu() for _ in range(10)])
+    if not probe["index_add"]:
+        raise AssertionError("scene D refine: the trace shows no kernel of "
+                             "a plain index_add_")
+    short = []
+    t0 = time.perf_counter()
+    work = device_work(lambda: short.append(refine.refine_bundle(
+        *args, max_iters=REFINE_D_TRACED, device=dev)))
+    steps = short[-1].iterations
+    log(f"[smoke] scene D refine_bundle, {steps} LM steps traced "
+        f"({time.perf_counter() - t0:.2f} s): {work['launches']} kernel "
+        f"launches, {work['scalar_reads']} scalar reads, "
+        f"{work['d2h_copies']} device-to-host copies, {work['index_add']} "
+        f"index_add_ kernels, device busy {work['busy_ms']:.1f} ms; by "
+        f"kernel:")
+    for name, n, ms in work["top"]:
+        log(f"[smoke]   {ms:9.1f} ms {n:7d}  {name}")
+    # the profiler may drop device events, never add them
+    if (work["scalar_reads"] or work["d2h_copies"] > steps + 1
+            or work["index_add"]):
+        raise AssertionError(f"scene D refine: {work['scalar_reads']} scalar "
+                             f"reads, {work['d2h_copies']} copies to the host "
+                             f"over {steps} LM steps, {work['index_add']} "
+                             f"index_add_ kernels")
+    return cases
+
+
 def main() -> int:
     import torch
 
@@ -2146,7 +2634,7 @@ def run(dev, card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    run_scene_d(dev, counts)
+    scD, exp_D, lifted_D = run_scene_d(dev, counts)
     log(f"[smoke] scene D: phase wall {time.perf_counter() - t0:.1f} s, "
         f"device memory peak "
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
@@ -2162,7 +2650,18 @@ def run(dev, card: str) -> int:
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
         f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
 
-    # ---- 11. report -----------------------------------------------------------
+    # ---- 11. scene D: relpose filter, XM^2 and the LM refinement ------------
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    refine_cases = run_refine_d(dev, counts, scD, exp_D, lifted_D)
+    log(f"[smoke] scene D refine: phase wall {time.perf_counter() - t0:.1f} "
+        f"s, device memory peak "
+        f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
+        f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
+    del scD, exp_D, lifted_D
+
+    # ---- 12. report -----------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
     dense_cases = [r for r in held.values() if "dense_ms" in r]
     step_err = worst([r[k] for r in held.values() if "dense_ms" not in r
@@ -2198,9 +2697,14 @@ def run(dev, card: str) -> int:
     csr_row = seg_row("csr", "sorted_segment_sum",
                       "xmtpu/ops/pallas_segsum.py:46", 3)
     csr_row["shapes"] = shapes
-    csr_row["tail"] = [{k: c[k] for k in ("tag", "E", "S", "D", "longest",
-                                          "ms", "plain_ms", "library_ms")}
-                       | {"bound_ms": c["bound"][0]} for c in tail_cases]
+    for key, cs in (("tail", tail_cases), ("refine", refine_cases)):
+        csr_row[key] = [{k: c[k] for k in ("tag", "E", "S", "D", "longest",
+                                           "ms", "plain_ms", "library_ms")}
+                        | {"bound_ms": c["bound"][0],
+                           "launches": counts[f"D {key}"][
+                               "sorted_segment_sum shapes"].get(
+                                   f"f64 D={c['D']}", 0)}
+                        for c in cs]
     kernels = [
         dict(name="tcg_step", route="cuda",
              source="xmtpu_torch/csrc/fused_tcg.cu",

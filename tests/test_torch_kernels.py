@@ -522,8 +522,15 @@ def _tail_layout(layout, seed=0):
     segment of 259k rows (the longest image-sorted sum the shape allows);
     ``track`` — 7,381 tracks of about 40 observations, in image order, so
     the sum gathers through a permutation (BA's and triangulation's track
-    sums, BATA's sums over points)."""
+    sums, BATA's sums over points); and the LM refinement's at scene D's
+    size: ``refine frame`` — 87,817 observations sorted into 200 frames
+    (its ``J^T y`` camera sums), ``refine landmark`` — the same rows into
+    4,366 landmarks in frame order (its point sums)."""
     rng = np.random.default_rng(seed)
+    if layout == "refine frame":
+        return np.sort(rng.integers(0, 200, 87_817)), 200
+    if layout == "refine landmark":
+        return rng.integers(0, 4366, 87_817), 4366
     if layout == "image":
         return np.sort(rng.integers(0, 200, 259_000)), 200
     if layout == "one":
@@ -559,11 +566,13 @@ def test_segments_helper_is_index_add_in_edge_order():
                                       ("image", 16), ("image", 36),
                                       ("one", 6), ("one", 36),
                                       ("track", 3), ("track", 9),
-                                      ("track", 16)])
+                                      ("track", 16), ("refine frame", 6),
+                                      ("refine landmark", 3)])
 def test_segsum_tail_shapes_on_card(layout, D, cuda_device):
-    """The tail stages' f64 shapes: long image segments at D = 6 to 36, one
-    segment of 259k rows, and the track layout through ``Segments``' gather:
-    the CPU twin's bits, twice."""
+    """The tail stages' and the refinement's f64 shapes: long image
+    segments at D = 6 to 36, one segment of 259k rows, the track layout
+    through ``Segments``' gather, the refine's frame (D = 6) and landmark
+    (D = 3) sums: the CPU twin's bits, twice."""
     ids, S = _tail_layout(layout, seed=D)
     vals = np.random.default_rng(D).normal(size=(len(ids), D))
     ref = ss.Segments(ids, S, "cpu").sum(torch.tensor(vals))

@@ -42,6 +42,11 @@ MODULES = ["xmtpu_torch", "xmtpu_torch.XM", "xmtpu_torch.config",
            "xmtpu_torch.pipeline.triangulation",
            "xmtpu_torch.pipeline.track_filter",
            "xmtpu_torch.pipeline.normalize", "xmtpu_torch.pipeline.gravity",
+           "xmtpu_torch.pipeline.relpose_filter",
+           "xmtpu_torch.pipeline.datasets", "xmtpu_torch.pipeline.depth",
+           "xmtpu_torch.pipeline.depth_net",
+           "xmtpu_torch.pipeline.synthetic_images",
+           "xmtpu_torch.pipeline.features", "xmtpu_torch.utils.logging",
            "xmtpu_torch.version", "chip_smoke"]
 
 
@@ -109,7 +114,10 @@ def _tiny(tmp_path):
                                    "l1_solve_dense", "global_positioning",
                                    "bundle_adjustment",
                                    "run_bundle_adjustment",
-                                   "triangulate_tracks", "retriangulate"])
+                                   "triangulate_tracks", "retriangulate",
+                                   "refine_bundle", "TinyMonoDepthModel",
+                                   "UniDepthModel", "run_frontend",
+                                   "calibrate_from_matches"])
 def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     import xmtpu_torch
     from xmtpu_torch.__main__ import main
@@ -124,6 +132,8 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     from xmtpu_torch.pipeline import bundle_adjustment as ba
     from xmtpu_torch.pipeline import triangulation as tri
     from xmtpu_torch.pipeline.global_positioning import global_positioning
+    from xmtpu_torch.pipeline import depth, depth_net, features
+    from xmtpu_torch.pipeline.refine import refine_bundle
 
     sc = _tiny(tmp_path)
     two = (np.array([0, 1]), np.zeros((2, 2)), np.array([0, 0]),
@@ -163,6 +173,15 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
             np.zeros((2, 3)), 1),
         "retriangulate": lambda: tri.retriangulate(*two[:5], two[6],
                                                    two[7]),
+        "refine_bundle": lambda: refine_bundle(
+            np.array([[1, 1], [2, 1]]), np.zeros((2, 2)),
+            np.tile(np.eye(3), 2), np.zeros((3, 2)), np.ones((3, 1))),
+        "TinyMonoDepthModel": lambda: depth_net.TinyMonoDepthModel(),
+        "UniDepthModel": lambda: depth.UniDepthModel(model=object()),
+        "run_frontend": lambda: features.run_frontend(
+            [], np.eye(3), depth_for_frame=lambda i: None),
+        "calibrate_from_matches": lambda: features.calibrate_from_matches(
+            [], [], [0.0, 0.0], 1.0),
     }
     for cmd in ("solve", "solve-rank3", "recover", "certify"):
         calls[f"main {cmd}"] = lambda cmd=cmd: main([cmd, str(tmp_path)])

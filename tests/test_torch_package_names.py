@@ -1,17 +1,24 @@
 """The port's public names against the JAX package's: every ``__all__`` of
-``xmtpu``, ``xmtpu.solver``, ``.ops``, ``.assembly`` and ``.pipeline`` is
-present in its ``xmtpu_torch`` counterpart, as the port's own objects; the
-options dataclasses of the mapper's tail stages carry every field and
-default of the reference's; and ``convert.options_from_reference`` carries
-them across by field name.
+``xmtpu``, ``xmtpu.solver``, ``.ops``, ``.assembly``, ``.pipeline`` and
+``.io`` is present in its ``xmtpu_torch`` counterpart, as the port's own
+objects, and so is every public function and class of the modules ported
+without an ``__all__``; the options dataclasses of the mapper's tail stages
+carry every field and default of the reference's; and
+``convert.options_from_reference`` carries them across by field name.
 """
 
 import dataclasses
 import importlib
+import inspect
 
 import pytest
 
-PACKAGES = ["", ".solver", ".ops", ".assembly", ".pipeline"]
+PACKAGES = ["", ".solver", ".ops", ".assembly", ".pipeline", ".io"]
+MODULES = [".config", ".utils.logging", ".utils.timer", ".pipeline.refine",
+           ".pipeline.relpose_filter", ".pipeline.datasets",
+           ".pipeline.depth", ".pipeline.depth_net",
+           ".pipeline.synthetic_images", ".pipeline.features",
+           ".pipeline.visualization"]
 OPTIONS = [("global_positioning", "PositionerOptions"),
            ("bundle_adjustment", "BundleAdjusterOptions"),
            ("triangulation", "TriangulatorOptions"),
@@ -32,6 +39,27 @@ def test_all_names_present(sub):
             assert mod.startswith("xmtpu_torch"), (name, mod)
     if not sub:
         assert port.__version__ == ref.__version__
+
+
+@pytest.mark.parametrize("sub", MODULES)
+def test_module_names_present(sub):
+    """Every function and class the JAX module defines (public or private:
+    the tests of both packages reach ``_expm_so3``, ``_to_input``) is
+    defined by the port's module of the same path, with the same
+    parameters first and in order (the port may add ``device``)."""
+    ref = importlib.import_module("xmtpu" + sub)
+    port = importlib.import_module("xmtpu_torch" + sub)
+    names = [n for n, o in vars(ref).items()
+             if (inspect.isfunction(o) or inspect.isclass(o))
+             and o.__module__ == ref.__name__]
+    assert names
+    for n in names:
+        obj = getattr(port, n, None)
+        assert obj is not None and obj.__module__ == port.__name__, n
+        if inspect.isfunction(obj):
+            a = list(inspect.signature(getattr(ref, n)).parameters)
+            b = list(inspect.signature(obj).parameters)
+            assert b[:len(a)] == a and set(b[len(a):]) <= {"device"}, n
 
 
 @pytest.mark.parametrize("module,name", OPTIONS)

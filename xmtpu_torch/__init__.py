@@ -12,10 +12,16 @@ dense dual certificate and the rank staircase); the implicit path past
 dense memory (the factored ``SchurQ`` operator and its two-float variants,
 with every sorted segment sum on the card through a hand-written kernel, the
 matvec certificate, view-graph cleanup, recovery and the XM^2 pipeline);
-and XM-SfM's mapper (``python -m xmtpu_torch`` with its six subcommands,
-the COLMAP-database mapper's stages 0-4, and its tail stages 5-8: global
+XM-SfM's mapper (``python -m xmtpu_torch`` with its six subcommands, the
+COLMAP-database mapper's stages 0-4); its tail stages 5-8 (global
 positioning, bundle adjustment, retriangulation and pruning, whose segment
-sums run through the same kernel).
+sums run through the same kernel); and the rest of the single-card
+pipeline: the relative-pose filter and the LM refinement
+(``refine_bundle``, its sums through the same kernel), the image front end
+(OpenCV features and two-view geometry, the depth adapters, the tiny
+monodepth net on the card, the dataset loaders), the pipeline
+configurations, logging, trace and viewer helpers.  Multi-card
+(``xmtpu.parallel``) is not ported.
 
 Entry points take ``device=None``, meaning the CUDA card; they raise when no
 card is present unless the caller passes ``device="cpu"``.  The package

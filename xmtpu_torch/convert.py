@@ -1,13 +1,15 @@
 """State carried between ``xmtpu`` (JAX) and ``xmtpu_torch``.
 
-The system has no weights: its "parameters" are the cost matrix and the
+The solver has no weights: its "parameters" are the cost matrix and the
 solver state.  These functions map them across as numpy arrays, so both
 packages can run from identical state (the parity tests) and a run can move
-between them.  Nothing here imports JAX: reference objects are read through
-their field names (``_asdict()`` of a NamedTuple, or a plain dict) and
-``np.asarray`` of each value.  Implicit operators cross the same way
+between them.  Nothing here imports JAX: reference objects are read
+through their field names (``_asdict()`` of a NamedTuple, or a plain dict)
+and ``np.asarray`` of each value.  Implicit operators cross the same way
 (:func:`schurq_from_numpy`), so a test can hold the port's ``apply`` apart
-from its ``build``.
+from its ``build``, and so does the one network of the pipeline, the tiny
+monodepth net of ``pipeline/depth_net.py``
+(:func:`depth_net_state_from_reference`).
 """
 
 from __future__ import annotations
@@ -113,6 +115,30 @@ def options_from_reference(x, kind: "str | None" = None):
         raise ValueError(f"options_from_reference: {name} has no field "
                          f"{unknown}")
     return cls(**d)
+
+
+def depth_net_state_from_reference(params) -> dict:
+    """The JAX package's tiny-monodepth parameters (a dict of numpy arrays
+    by the reference module's parameter names, e.g. ``body.0.weight``) as
+    the port's ``state_dict`` for ``depth_net.build_net()``: float32
+    tensors on the host, ready for ``load_state_dict``.  A missing or
+    unknown name, or a shape other than the port's, raises ``ValueError``."""
+    from xmtpu_torch.pipeline.depth_net import build_net
+
+    want = build_net().state_dict()
+    missing = sorted(set(want) - set(params))
+    unknown = sorted(set(params) - set(want))
+    if missing or unknown:
+        raise ValueError(f"depth_net_state_from_reference: missing "
+                         f"{missing}, unknown {unknown}")
+    out = {}
+    for name, ref in want.items():
+        a = np.asarray(params[name], dtype=np.float32)
+        if a.shape != tuple(ref.shape):
+            raise ValueError(f"depth_net_state_from_reference: {name} has "
+                             f"shape {a.shape}, expected {tuple(ref.shape)}")
+        out[name] = torch.from_numpy(a.copy())
+    return out
 
 
 def tr_state_from_numpy(x, device=None):

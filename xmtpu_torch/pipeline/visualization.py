@@ -1,15 +1,23 @@
-"""Visualization: camera frusta + point clouds, exported to PLY.
+"""Visualization: camera frusta + point clouds.
 
-The headless part of ``xmtpu/pipeline/visualization.py`` (a re-design of
-the reference's utils/visualization.py:4-65): the frusta as line sets and
-the landmarks as colored points, viewable in any mesh tool.  ``recover
---ply`` of the command line writes them.  The open3d viewers come with the
-rest of the pipeline.
+The port's copy of ``xmtpu/pipeline/visualization.py`` (a re-design of the
+reference's utils/visualization.py:4-65) with open3d as an *optional*
+dependency: when open3d is installed the interactive viewers match the
+reference; otherwise the same geometry is exported to PLY files (frusta as
+line sets, landmarks as colored points) viewable in any mesh tool.
+``recover --ply`` of the command line writes them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+try:
+    import open3d as o3d
+    _HAS_O3D = True
+except ImportError:  # optional dependency
+    o3d = None
+    _HAS_O3D = False
 
 
 def camera_frustum_lines(extrinsic: np.ndarray, scale: float = 0.1):
@@ -68,3 +76,39 @@ def export_ply(path_prefix: str, extrinsics, points=None, colors=None,
                     "end_header\n")
             for p, c in zip(cloud, cols):
                 f.write(f"{p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n")
+
+
+def _frusta(extrinsics, scale):
+    """open3d line sets of the camera frusta, painted red."""
+    geoms = []
+    for ext in extrinsics:
+        w, l = camera_frustum_lines(np.asarray(ext), scale)
+        ls = o3d.geometry.LineSet()
+        ls.points = o3d.utility.Vector3dVector(w)
+        ls.lines = o3d.utility.Vector2iVector(l)
+        ls.paint_uniform_color([1, 0, 0])
+        geoms.append(ls)
+    return geoms
+
+
+def visualize_camera(extrinsics, scale: float = 0.1):
+    """Interactive camera-frustum viewer (visualization.py:4-31); falls back
+    to PLY export when open3d is unavailable."""
+    if not _HAS_O3D:
+        export_ply("xmtpu_viz", extrinsics, scale=scale)
+        print("open3d not available; wrote xmtpu_viz_cameras.ply")
+        return
+    o3d.visualization.draw_geometries(_frusta(extrinsics, scale))
+
+
+def visualize(extrinsics, points, colors=None, scale: float = 0.1):
+    """Cameras + landmark cloud (visualization.py:33-65)."""
+    if not _HAS_O3D:
+        export_ply("xmtpu_viz", extrinsics, points, colors, scale)
+        print("open3d not available; wrote xmtpu_viz_{cameras,points}.ply")
+        return
+    pc = o3d.geometry.PointCloud()
+    pc.points = o3d.utility.Vector3dVector(np.asarray(points))
+    if colors is not None:
+        pc.colors = o3d.utility.Vector3dVector(np.asarray(colors))
+    o3d.visualization.draw_geometries(_frusta(extrinsics, scale) + [pc])
