@@ -89,7 +89,29 @@ Phases (any failure exits non-zero; no phase is caught):
    steps) traced: its launches, no scalar read, no copy to the host beyond
    one a LM step and the result, no ``index_add_`` kernel, its device busy
    time by kernel;
-12. print the kernels' JSON line, the card's name and power limit, and the
+12. the parallel paths (``xmtpu_torch.parallel``) on a 4-slot mesh: four
+   cards where there are four, else ``Mesh((cuda:0,) * 4)``, four slots on
+   the one card: (a) scene B's dense C row-sharded, one ``sharded_tr_step``
+   (the loss falls; R', s', loss' within 1e-9 of the single-card outer
+   step) and ``solve_arrays_sharded`` at phase 4's settings (certified rank
+   3 within 1e-4 of the reference's primal by the matvec certificate,
+   ``tcg_step`` launched, never ``tcg_step_dense``), each slab's bytes;
+   (b) scene C's ``SchurQ`` sharded by ``shard_schurq`` and solved at phase
+   7's settings (certified rank 3 within 5e-3 of the reference's primal;
+   ``sorted_segment_sum`` launched once for each slot's sum, each slot
+   holding whole segments, and no launch of the twin; ``tcg_step``
+   launched), then the f32
+   phase's first outer iterations traced; (c) scene B's C written as
+   ``Q.bin`` and solved by two spawned ranks on the card over gloo with
+   CUDA tensors, each loading only its rows through a memory map
+   (``solve_arrays_distributed``: both certify rank 3 with equal primal
+   bits; their difference from (a) printed), and over NCCL, one rank a
+   card, where there are two cards (else ``nccl: not run (1 card)``, and
+   two NCCL ranks on the one card must be refused by
+   ``init_distributed``'s card check with ``ValueError`` on both); each
+   part's wall, device busy and idle share, launches and the ranks'
+   all-gather seconds, with the card's name and power limit;
+13. print the kernels' JSON line, the card's name and power limit, and the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 A kernel's ``ms`` is its time on the card per launch (profiler durations);
@@ -101,8 +123,9 @@ HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
 card's time for ``torch.matmul`` on the same W (the dense variant's
 product) or for one ``index_add_`` on the same tensors (segment sums, whose
 plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
-its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9, 10 and 11,
-each read just after its run with the counters set to 0 just before; the
+its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9, 10, 11 and
+12 (its ranks' counts read in each rank), each read just after its run with
+the counters set to 0 just before (also under ``sharded`` for phase 12); the
 segment sum's launches are also counted by dtype and D (its ``shapes``),
 and its row on the ``kernels`` line shows the most launched shape, f32 D=3
 on the landmark ordering, with the tail's and the refine's layouts under
@@ -485,6 +508,16 @@ DEPTH_NET = (
      3.514904022216797, 0.0929693877696991, 3.802901268005371,
      0.0922577753663063))
 DEPTH_NET_RTOL = 1e-4
+
+# the settings of the phase-12 solves: phase 4's on scene B, phase 7's on
+# scene C (xm2._solve_recover(Q_C, None, True, 5, 1e-1, ..., "mixed"))
+PAR_B = dict(max_rank=6, tol=1e-3, precision="mixed", inner_f32=True,
+             verbose=False)
+PAR_C = dict(max_rank=5, tol=1e-1, lam=0.0, max_time=1000.0,
+             precision="mixed", inner_f32=True, edge_tf=True, verbose=False)
+PAR_SLOTS = 4          # the single-process mesh's slots
+PAR_TRACED_OUTER = 5   # outer iterations of the traced scene C window
+PAR_RANK_TIMEOUT = 400  # seconds the two ranks of phase 12 (c) may take
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
 # f64 FLOP/s outside the tensor cores
@@ -2329,6 +2362,382 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
     return cases
 
 
+def traced_wall(fn):
+    """``fn`` wrapped to record its own wall seconds (synchronised) in
+    ``box["s"]``, for the idle share of a :func:`device_work` run."""
+    import torch
+
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        box["s"] = time.perf_counter() - t0
+
+    return run, box
+
+
+def busy_text(work, wall_s) -> str:
+    return (f"device busy {work['busy_ms']:.1f} ms of {wall_s * 1e3:.1f} ms "
+            f"traced (idle {1.0 - work['busy_ms'] / 1e3 / wall_s:.1%}), "
+            f"{work['launches']} kernels")
+
+
+def _parallel_rank(rank, port, qbin, dev_type, shape, backend, settings,
+                   out_dir):
+    """One rank of phase 12 (c): join the process group (``backend``, one
+    slot on the card, ``cuda:rank`` under NCCL), load only this rank's rows
+    of ``C`` from ``qbin`` through a memory map, run
+    ``solve_arrays_distributed`` once timed and once traced (both ranks
+    retry a trace the profiler dropped together, so their collectives stay
+    in step), and write the result to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from xmtpu_torch.parallel import distributed as pd
+
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    pd.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                        initialization_timeout=120, device=dev,
+                        backend=backend)
+    mesh = pd.global_mesh(slots=1, device=dev)
+    # the payload after the two-int header, read row by row
+    rows = np.memmap(qbin, dtype=np.float64, mode="r", offset=8, shape=shape)
+    comm = {"calls": 0, "s": 0.0}
+    gather = dist.all_gather
+
+    def timed_gather(*a, **k):
+        t0 = time.perf_counter()
+        out = gather(*a, **k)
+        comm["calls"] += 1
+        comm["s"] += time.perf_counter() - t0
+        return out
+
+    dist.all_gather = timed_gather
+
+    def solve():
+        return pd.solve_arrays_distributed(mesh, lambda a, b: rows[a:b],
+                                           shape, **settings)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = solve()
+    sync()
+    wall = time.perf_counter() - t0
+    out = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
+               primal=res.primal, primal_hex=float(res.primal).hex(),
+               certified=res.certified, o=res.rank, status=res.status,
+               outer=res.outer_iters, inner=res.total_inner, wall_s=wall,
+               gathers=comm["calls"], gather_s=comm["s"],
+               launches=read_counts(),
+               cert_path=res.stages[-1].get("cert_path"))
+    if dev.type == "cuda":
+        again, box = traced_wall(solve)
+        for _ in range(3):
+            try:
+                work, ok = device_work(again, tries=1), 1
+            except RuntimeError:
+                work, ok = None, 0
+            flag = torch.tensor([ok], device=dev)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            if int(flag.item()):
+                break
+        else:
+            raise RuntimeError("phase 12 (c): the profiler recorded nothing "
+                               "in three traced runs")
+        out.update(busy_ms=work["busy_ms"], traced_s=box["s"],
+                   traced_kernels=work["launches"],
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _nccl_refusal_rank(rank, port, out_dir):
+    """One of two NCCL ranks on the one card (``device=None``: the card
+    ``rank % 1``): ``init_distributed`` must raise ``ValueError`` once
+    joined, on every rank, and leave the process group; the error is
+    written to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from xmtpu_torch.parallel import distributed as pd
+
+    try:
+        pd.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                            initialization_timeout=60)
+        error = ""
+    except ValueError as e:
+        error = str(e)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "error": error,
+                   "initialized": dist.is_initialized()}, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def port_free() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(qbin, dev, shape, backend, out_dir) -> list:
+    """Phase 12 (c)'s two solving ranks (:func:`spawn_ranks`)."""
+    return spawn_ranks(_parallel_rank, (port_free(), qbin, dev.type, shape,
+                                        backend, PAR_B, out_dir),
+                       backend, out_dir)
+
+
+def spawn_ranks(target, args, what, out_dir) -> list:
+    """Two spawned processes ``target(rank, *args)``; each must exit 0
+    within ``PAR_RANK_TIMEOUT`` (a rank still alive then is killed), and
+    write ``out_dir/rank<r>.json``, which are returned."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r,) + tuple(args))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if alive or any(c != 0 for c in codes):
+        raise AssertionError(f"phase 12 (c) {what}: rank exit codes "
+                             f"{codes}, {len(alive)} killed at the time limit")
+    out = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
+    """Phase 12: the parallel paths.  (a) scene B's dense C row-sharded over
+    a 4-slot mesh (four cards where there are four, else four slots on the
+    card): one ``sharded_tr_step`` against the single-card outer step, then
+    ``solve_arrays_sharded`` at phase 4's settings; (b) scene C's
+    ``SchurQ`` sharded by ``shard_schurq`` over the same mesh and solved at
+    phase 7's settings, with a traced window of the f32 phase; (c) scene B's
+    ``C`` written as ``Q.bin`` and solved by two ranks on the card over
+    gloo, each loading only its rows (and over NCCL, one rank a card, where
+    there are two cards).  Returns (b)'s segment sums a slot and its
+    per-slot counts, for the report."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from xmtpu_torch.io.bin_format import save_matrix_to_bin
+    from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.ops import segsum as ss
+    from xmtpu_torch.ops.qop import DenseQ, cast_qop
+    from xmtpu_torch.parallel import mesh as pm
+    from xmtpu_torch.solver import trust_region as tr
+
+    cards = torch.cuda.device_count()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if cards >= PAR_SLOTS:
+        mesh = pm.Mesh([torch.device("cuda", i) for i in range(PAR_SLOTS)])
+        mesh_tag = f"{PAR_SLOTS} cards"
+    else:
+        mesh = pm.Mesh([dev] * PAR_SLOTS)
+        mesh_tag = (f"Mesh(({dev},) * {PAR_SLOTS}): {PAR_SLOTS} slots on one "
+                    f"card")
+    log(f"[smoke] parallel: {mesh_tag}; {card}")
+
+    # ---- (a) scene B dense, row-sharded ----
+    C_B, _, _ = scene(SCENE_B, dev)
+    nB = C_B.shape[0] // 3
+    R0 = mf.identity_frames(nB, 3, device=dev)
+    s0 = torch.ones((nB,), dtype=torch.float64, device=dev)
+    loss0 = float(mf.objective(DenseQ(C_B).apply, R0, s0, 0.0))
+    Rd, sd, ld = pm._one_outer_step(DenseQ(C_B), R0, s0)
+    t0 = time.perf_counter()
+    Rs, s_s, ls = pm.sharded_tr_step(mesh, C_B, R0, s0)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    gaps = (float(torch.max(torch.abs(Rs - Rd))),
+            float(torch.max(torch.abs(s_s - sd) / torch.abs(sd))),
+            abs(float(ls) - float(ld)) / abs(float(ld)))
+    log(f"[smoke] parallel (a) sharded_tr_step: loss {loss0!r} -> "
+        f"{float(ls)!r} ({t_step:.3f} s); against the single-card outer "
+        f"step: R' "
+        f"{gaps[0]:.2e} (abs), s' {gaps[1]:.2e}, loss' {gaps[2]:.2e} (rel)")
+    if not float(ls) < loss0:
+        raise AssertionError("phase 12 (a): the sharded step did not lower "
+                             "the loss")
+    if not (torch.allclose(Rs, Rd, rtol=1e-9, atol=1e-12)
+            and torch.allclose(s_s, sd, rtol=1e-9) and gaps[2] <= 1e-9):
+        raise AssertionError(f"phase 12 (a): the sharded outer step is "
+                             f"{gaps} from the single-card one")
+    Cs = pm.shard_problem(mesh, C_B, R0, s0)[0]
+    log(f"[smoke] parallel (a) slabs: rows "
+        f"{[s.shape[0] for s in Cs.slabs]}, bytes {Cs.slab_bytes()}")
+    del Cs, Rs, s_s, Rd, sd
+    reset_counts()
+    t0 = time.perf_counter()
+    res_a = pm.solve_arrays_sharded(mesh, C_B, **PAR_B)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    counts["P dense"] = read_counts()
+    again, box = traced_wall(lambda: pm.solve_arrays_sharded(mesh, C_B,
+                                                             **PAR_B))
+    work_a = device_work(again)
+    path_a = res_a.stages[-1]["cert_path"]
+    log(f"[smoke] parallel (a) solve_arrays_sharded scene B: rank "
+        f"{res_a.rank} status {res_a.status} primal {res_a.primal!r} "
+        f"({res_a.primal - primal_B:+.3e} from phase 4's single-card "
+        f"{primal_B!r}; reference {PRIMAL_B!r}) outer {res_a.outer_iters} "
+        f"inner {res_a.total_inner}; certificate: matvec flow, path "
+        f"{path_a}; wall {wall_a:.2f} s; {busy_text(work_a, box['s'])}; "
+        f"launches {counts['P dense']}; {card}")
+    if not (res_a.certified and res_a.rank == 3 and res_a.status == 1
+            and not res_a.stages[-1]["fused"] and path_a != "dense"):
+        raise AssertionError("phase 12 (a): not certified at rank 3 by the "
+                             "matvec certificate")
+    if abs(res_a.primal - PRIMAL_B) > RTOL_PRIMAL * PRIMAL_B:
+        raise AssertionError(f"phase 12 (a) primal {res_a.primal} vs "
+                             f"{PRIMAL_B}")
+    if (counts["P dense"]["tcg_step"] <= 0
+            or counts["P dense"]["tcg_step_dense"] != 0):
+        raise AssertionError(f"phase 12 (a): expected tcg_step launches and "
+                             f"no tcg_step_dense, got {counts['P dense']}")
+
+    # ---- (b) scene C's SchurQ, sharded ----
+    t0 = time.perf_counter()
+    Qs = pm.shard_schurq(mesh, Q_C)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    log(f"[smoke] parallel (b) shard_schurq scene C ({t_shard:.2f} s): "
+        f"cameras {[s.cams for s in Qs.slots]}, VT_inv panels "
+        f"{[tuple(s.q.VT_inv.shape) for s in Qs.slots]}, edges a slot by "
+        f"landmark {[s.q.l_l.shape[0] for s in Qs.slots]}, by frame "
+        f"{[s.q.f_f.shape[0] for s in Qs.slots]}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res_b = pm.solve_arrays_sharded(mesh, Qs, **PAR_C)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts["P SchurQ"] = read_counts()
+    st = {"slot_sums": list(Qs.stats["slot_sums"])}
+    nC = Q_C.n_cameras
+    q32 = cast_qop(Qs, torch.float32)
+    R0c = mf.identity_frames(nC, 3, dtype=torch.float32, device=dev)
+    s0c = torch.ones((nC,), dtype=torch.float32, device=dev)
+    cfg = tr.TRConfig.for_dtype(torch.float32, max_outer=PAR_TRACED_OUTER,
+                                max_inner=100)
+    again, box = traced_wall(lambda: tr.trust_region_solve(
+        q32, R0c, s0c, cfg=cfg, dtype=torch.float32, device=dev))
+    work_b = device_work(again)
+    del q32
+    log(f"[smoke] parallel (b) solve_arrays_sharded scene C: rank "
+        f"{res_b.rank} status {res_b.status} primal {res_b.primal!r} "
+        f"(reference {PRIMAL_C!r}) outer {res_b.outer_iters} inner "
+        f"{res_b.total_inner}, certificate path "
+        f"{res_b.stages[-1]['cert_path']}; wall {wall_b:.2f} s; segment "
+        f"sums a slot {st['slot_sums']}, "
+        f"by shape {counts['P SchurQ']['sorted_segment_sum shapes']}; "
+        f"launches {counts['P SchurQ']}; the f32 phase's first "
+        f"{PAR_TRACED_OUTER} outer iterations traced: "
+        f"{busy_text(work_b, box['s'])}; top {work_b['top'][:4]}; {card}")
+    if not (res_b.certified and res_b.rank == 3 and res_b.status == 1):
+        raise AssertionError("phase 12 (b): not certified at rank 3")
+    if abs(res_b.primal - PRIMAL_C) > RTOL_IMPLICIT * PRIMAL_C:
+        raise AssertionError(f"phase 12 (b) primal {res_b.primal} vs "
+                             f"{PRIMAL_C}")
+    seg = counts["P SchurQ"]["sorted_segment_sum"]
+    if min(st["slot_sums"]) <= 0 or seg != sum(st["slot_sums"]):
+        raise AssertionError(f"phase 12 (b): {seg} segment-sum launches "
+                             f"for {st} calls on the card")
+    if counts["P SchurQ"]["tcg_step"] <= 0:
+        raise AssertionError("phase 12 (b): tcg_step never launched")
+    del Qs
+
+    # ---- (c) two processes on the card ----
+    tmp = tempfile.mkdtemp(prefix="xmtpu_smoke_")
+    try:
+        qbin = os.path.join(tmp, "Q.bin")
+        t0 = time.perf_counter()
+        # Q.bin stores column-major: C_B^T written so gives C_B's rows in
+        # order after the header (C_B is symmetric up to its last bits)
+        save_matrix_to_bin(qbin, C_B.T.cpu().numpy())
+        log(f"[smoke] parallel (c) Q.bin: {os.path.getsize(qbin)} bytes "
+            f"({time.perf_counter() - t0:.2f} s)")
+        shape = tuple(C_B.shape)
+        del C_B
+        backends = ["gloo"] + (["nccl"] if cards >= 2 else [])
+        for backend in backends:
+            t0 = time.perf_counter()
+            ranks = run_ranks(qbin, dev, shape, backend, tmp)
+            wall_c = time.perf_counter() - t0
+            for r in ranks:
+                counts[f"P {backend} rank {r['rank']}"] = r["launches"]
+                traced = (f"traced again: device busy {r['busy_ms']:.1f} ms "
+                          f"of {r['traced_s'] * 1e3:.1f} ms (idle "
+                          f"{1 - r['busy_ms'] / 1e3 / r['traced_s']:.1%}); "
+                          f"device memory peak {r['peak_gib']:.3f} GiB"
+                          if "busy_ms" in r else "not traced (host ranks)")
+                log(f"[smoke] parallel (c) {backend} over "
+                    f"{dev.type.upper()} tensors, rank {r['rank']} on "
+                    f"{r['device']}: rank {r['o']} status "
+                    f"{r['status']} primal {r['primal']!r} ({r['primal_hex']}"
+                    f"; {r['primal'] / res_a.primal - 1:+.3e} from (a)) outer "
+                    f"{r['outer']} inner {r['inner']}, certificate path "
+                    f"{r['cert_path']}; solve wall {r['wall_s']:.2f} s, "
+                    f"{r['gathers']} all_gather calls taking "
+                    f"{r['gather_s']:.3f} s on the host; {traced}; launches "
+                    f"{r['launches']}; {card}")
+            log(f"[smoke] parallel (c) {backend}: two ranks, wall "
+                f"{wall_c:.1f} s with start-up")
+            if not all(r["certified"] and r["o"] == 3 and r["status"] == 1
+                       and r["backend"] == backend for r in ranks):
+                raise AssertionError(f"phase 12 (c) {backend}: not certified "
+                                     f"at rank 3 on every rank")
+            if ranks[0]["primal_hex"] != ranks[1]["primal_hex"]:
+                raise AssertionError(f"phase 12 (c) {backend}: the ranks' "
+                                     f"primals differ")
+            if abs(ranks[0]["primal"] - PRIMAL_B) > RTOL_PRIMAL * PRIMAL_B:
+                raise AssertionError(f"phase 12 (c) {backend} primal "
+                                     f"{ranks[0]['primal']} vs {PRIMAL_B}")
+            if min(r["launches"]["tcg_step"] for r in ranks) <= 0:
+                raise AssertionError(f"phase 12 (c) {backend}: tcg_step "
+                                     f"never launched on a rank")
+        if cards < 2:
+            log("[smoke] parallel (c) nccl: not run (1 card)")
+            t0 = time.perf_counter()
+            refusals = spawn_ranks(_nccl_refusal_rank, (port_free(), tmp),
+                                   "nccl refusal", tmp)
+            log(f"[smoke] parallel (c) two NCCL ranks on the one card: "
+                f"refused on both ranks before a communicator "
+                f"({time.perf_counter() - t0:.1f} s with start-up): "
+                f"{refusals[0]['error']}")
+            if not all("share the card" in r["error"]
+                       and not r["initialized"] for r in refusals):
+                raise AssertionError(f"phase 12 (c): two NCCL ranks on one "
+                                     f"card were not refused: {refusals}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return st
+
+
 def main() -> int:
     import torch
 
@@ -2661,7 +3070,18 @@ def run(dev, card: str) -> int:
         f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
     del scD, exp_D, lifted_D
 
-    # ---- 12. report -----------------------------------------------------------
+    # ---- 12. the parallel paths: slots on the card, two processes ----------
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    slot_stats = run_parallel(dev, counts, card, res_B.primal, Q_C)
+    log(f"[smoke] parallel: phase wall {time.perf_counter() - t0:.1f} s, "
+        f"device memory peak "
+        f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
+        f"GiB above the {held_before / 2**30:.3f} GiB held when it started")
+    del Q_C
+
+    # ---- 13. report -----------------------------------------------------------
     a, b, c = held["A o=3"], held["B o=3"], held["C o=3"]
     dense_cases = [r for r in held.values() if "dense_ms" in r]
     step_err = worst([r[k] for r in held.values() if "dense_ms" not in r
@@ -2697,6 +3117,11 @@ def run(dev, card: str) -> int:
     csr_row = seg_row("csr", "sorted_segment_sum",
                       "xmtpu/ops/pallas_segsum.py:46", 3)
     csr_row["shapes"] = shapes
+    # phase 12's runs (in the totals too): per run, and per slot on (b)
+    sharded = {k: v for k, v in counts.items() if k.startswith("P ")}
+    csr_row["sharded"] = {k: v["sorted_segment_sum"]
+                          for k, v in sharded.items()} | {
+        "slot_sums": slot_stats["slot_sums"]}
     for key, cs in (("tail", tail_cases), ("refine", refine_cases)):
         csr_row[key] = [{k: c[k] for k in ("tag", "E", "S", "D", "longest",
                                            "ms", "plain_ms", "library_ms")}
@@ -2715,6 +3140,7 @@ def run(dev, card: str) -> int:
              plain_ms=c["step_plain_ms"],
              bound_ms=c["step_bound"][0], bound_by=c["step_bound"][1],
              library_ms=None, solve_ms=step_in_C[0],
+             sharded={k: v["tcg_step"] for k, v in sharded.items()},
              geometry=c["geometry"],
              shape=f"n={scC.N} o=3 (scene C, split variant on the f32 cast "
                    f"of SchurQ); solve_ms: mean over the {step_in_C[1]} "

@@ -796,3 +796,80 @@ def test_schurq_moved_to_card_takes_kernel(kind, cuda_device):
                      / torch.linalg.norm(ref))
 
     assert rel(a) <= 2.0 * rel(q_host.apply(Y)) + 1e-9
+
+
+# ---- sharded operators (xmtpu_torch.parallel) on the card ----------------
+
+@pytest.mark.parametrize("kind", list(_OPS))
+def test_sharded_schurq_host_twin_has_single_bits(kind):
+    """Sharded over five host slots, every variant applies with the single
+    operator's bits (each slot sums whole segments, in row order)."""
+    from xmtpu_torch.parallel.mesh import Mesh, shard_schurq
+
+    q = _OPS[kind](_host_schurq())
+    qs = shard_schurq(Mesh(["cpu"] * 5), _host_schurq())
+    qs = {"SchurQ": qs, "f32 cast": cast_qop(qs, torch.float32),
+          "edge_f32": qs.edge_f32(), "two_float": qs.two_float()}[kind]
+    Y = torch.tensor(np.random.default_rng(2).normal(size=(q.dim, 3)),
+                     dtype=q.Q1.dtype)
+    assert torch.equal(qs.apply(Y), q.apply(Y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_OPS))
+def test_sharded_schurq_apply_on_card(kind, cuda_device):
+    """Five slots on one card: every segment sum of an apply launches the
+    kernel once a slot, two applies
+    give the same bits, and the apply matches the host twin's sharded one
+    (the kernel is the CPU twin's bits; the per-camera products and the
+    ``VT_inv`` GEMM may round differently on the card)."""
+    from xmtpu_torch.parallel.mesh import Mesh, shard_schurq
+
+    def make(dev):
+        qs = shard_schurq(Mesh([dev] * 5), as_qop(_host_schurq(),
+                                                  device=dev))
+        return {"SchurQ": qs, "f32 cast": cast_qop(qs, torch.float32),
+                "edge_f32": qs.edge_f32(), "two_float": qs.two_float()}[kind]
+
+    host, card = make(torch.device("cpu")), make(cuda_device)
+    Y = torch.tensor(np.random.default_rng(1).normal(size=(host.dim, 3)),
+                     dtype=host.slots[0].q.Q1.dtype)
+    n0 = ss.sorted_segment_sum.launches
+    a = card.apply(Y.to(cuda_device))
+    b = card.apply(Y.to(cuda_device))
+    torch.cuda.synchronize()
+    stats = card.stats
+    assert all(c > 0 for c in stats["slot_sums"])
+    assert ss.sorted_segment_sum.launches - n0 == sum(stats["slot_sums"])
+    assert torch.equal(a, b)
+    ref = host.apply(Y)
+    tol = 1e-12 if kind in ("SchurQ", "edge_f32") else 1e-5
+    assert float(torch.linalg.norm(a.cpu() - ref)
+                 / torch.linalg.norm(ref)) < tol
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_card(cuda_device):
+    """A slab on the second card, launched while the first card is
+    current, runs on its own card (the wrappers' device guard) and matches
+    the twin; one card cannot show it."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on the second card "
+                    "while the first is current")
+    dev1 = torch.device("cuda", 1)
+    rng = np.random.default_rng(0)
+    vals = torch.tensor(rng.normal(size=(5000, 6)))
+    ids = torch.tensor(np.sort(rng.integers(0, 300, size=5000)))
+    with torch.cuda.device(0):
+        got = ss.sorted_segment_sum(vals.to(dev1), ids.to(dev1), 300)
+        torch.cuda.synchronize(dev1)
+    assert got.device == dev1
+    assert torch.equal(got.cpu(), ss.sorted_segment_sum_plain(vals, ids, 300))
+    args, minv = _inputs(n=200, dense=False, device=dev1)
+    n0 = ft.tcg_step.launches
+    with torch.cuda.device(0):
+        got = ft.inner_tcg_fused(*args, CFG, minv)
+        torch.cuda.synchronize(dev1)
+    assert ft.tcg_step.launches > n0
+    args, minv = _inputs(n=200, dense=False)
+    _assert_loop_close(got, ft.inner_tcg_fused(*args, CFG, minv))

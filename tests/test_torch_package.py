@@ -47,7 +47,10 @@ MODULES = ["xmtpu_torch", "xmtpu_torch.XM", "xmtpu_torch.config",
            "xmtpu_torch.pipeline.depth_net",
            "xmtpu_torch.pipeline.synthetic_images",
            "xmtpu_torch.pipeline.features", "xmtpu_torch.utils.logging",
-           "xmtpu_torch.version", "chip_smoke"]
+           "xmtpu_torch.version", "xmtpu_torch.parallel",
+           "xmtpu_torch.parallel.mesh", "xmtpu_torch.parallel.sharded",
+           "xmtpu_torch.parallel.distributed",
+           "xmtpu_torch.parallel._multihost_worker", "chip_smoke"]
 
 
 def _run(code, cwd=ROOT):
@@ -117,8 +120,10 @@ def _tiny(tmp_path):
                                    "triangulate_tracks", "retriangulate",
                                    "refine_bundle", "TinyMonoDepthModel",
                                    "UniDepthModel", "run_frontend",
-                                   "calibrate_from_matches"])
-def test_entry_points_without_device_raise(entry, tmp_path, no_card):
+                                   "calibrate_from_matches", "make_mesh",
+                                   "global_mesh", "_multihost_worker"])
+def test_entry_points_without_device_raise(entry, tmp_path, no_card,
+                                           monkeypatch):
     import xmtpu_torch
     from xmtpu_torch.__main__ import main
     from xmtpu_torch.ops.l1 import l1_solve_dense
@@ -134,6 +139,9 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
     from xmtpu_torch.pipeline.global_positioning import global_positioning
     from xmtpu_torch.pipeline import depth, depth_net, features
     from xmtpu_torch.pipeline.refine import refine_bundle
+    from xmtpu_torch.parallel.distributed import global_mesh
+    from xmtpu_torch.parallel import _multihost_worker
+    from xmtpu_torch.parallel.mesh import make_mesh
 
     sc = _tiny(tmp_path)
     two = (np.array([0, 1]), np.zeros((2, 2)), np.array([0, 0]),
@@ -182,7 +190,13 @@ def test_entry_points_without_device_raise(entry, tmp_path, no_card):
             [], np.eye(3), depth_for_frame=lambda i: None),
         "calibrate_from_matches": lambda: features.calibrate_from_matches(
             [], [], [0.0, 0.0], 1.0),
+        "make_mesh": lambda: make_mesh(),
+        "global_mesh": lambda: global_mesh(),
+        "_multihost_worker": _multihost_worker.main,
     }
+    monkeypatch.delenv("XMTPU_MH_DEVICE", raising=False)
+    for k, v in (("NPROC", "1"), ("PID", "0"), ("COORD", "127.0.0.1:1")):
+        monkeypatch.setenv(f"XMTPU_MH_{k}", v)
     for cmd in ("solve", "solve-rank3", "recover", "certify"):
         calls[f"main {cmd}"] = lambda cmd=cmd: main([cmd, str(tmp_path)])
     calls["main mapper"] = lambda: main([

@@ -1,6 +1,6 @@
 """The port's public names against the JAX package's: every ``__all__`` of
-``xmtpu``, ``xmtpu.solver``, ``.ops``, ``.assembly``, ``.pipeline`` and
-``.io`` is present in its ``xmtpu_torch`` counterpart, as the port's own
+``xmtpu``, ``xmtpu.solver``, ``.ops``, ``.assembly``, ``.pipeline``, ``.io``
+and ``.parallel`` is present in its ``xmtpu_torch`` counterpart, as the port's own
 objects, and so is every public function and class of the modules ported
 without an ``__all__``; the options dataclasses of the mapper's tail stages
 carry every field and default of the reference's; and
@@ -13,12 +13,18 @@ import inspect
 
 import pytest
 
-PACKAGES = ["", ".solver", ".ops", ".assembly", ".pipeline", ".io"]
+PACKAGES = ["", ".solver", ".ops", ".assembly", ".pipeline", ".io",
+            ".parallel"]
 MODULES = [".config", ".utils.logging", ".utils.timer", ".pipeline.refine",
            ".pipeline.relpose_filter", ".pipeline.datasets",
            ".pipeline.depth", ".pipeline.depth_net",
            ".pipeline.synthetic_images", ".pipeline.features",
-           ".pipeline.visualization"]
+           ".pipeline.visualization", ".parallel.mesh",
+           ".parallel.distributed", ".parallel._multihost_worker"]
+# parameters a port function may add after the reference's: the device,
+# and for the process group its backend (gloo for ranks sharing a card)
+# and the mesh's slots a process
+EXTRA_PARAMS = {".parallel.distributed": {"device", "backend", "slots"}}
 OPTIONS = [("global_positioning", "PositionerOptions"),
            ("bundle_adjustment", "BundleAdjusterOptions"),
            ("triangulation", "TriangulatorOptions"),
@@ -59,7 +65,8 @@ def test_module_names_present(sub):
         if inspect.isfunction(obj):
             a = list(inspect.signature(getattr(ref, n)).parameters)
             b = list(inspect.signature(obj).parameters)
-            assert b[:len(a)] == a and set(b[len(a):]) <= {"device"}, n
+            extra = EXTRA_PARAMS.get(sub, {"device"})
+            assert b[:len(a)] == a and set(b[len(a):]) <= extra, n
 
 
 @pytest.mark.parametrize("module,name", OPTIONS)

@@ -20,8 +20,11 @@ pipeline: the relative-pose filter and the LM refinement
 (``refine_bundle``, its sums through the same kernel), the image front end
 (OpenCV features and two-view geometry, the depth adapters, the tiny
 monodepth net on the card, the dataset loaders), the pipeline
-configurations, logging, trace and viewer helpers.  Multi-card
-(``xmtpu.parallel``) is not ported.
+configurations, logging, trace and viewer helpers; and the multi-slot
+solves of ``xmtpu.parallel`` (``xmtpu_torch.parallel``: dense ``C`` and
+``SchurQ`` sharded over the slots of a mesh, one card holding several
+slots or one slot a card, and the multi-process dense solve on
+``torch.distributed``).
 
 Entry points take ``device=None``, meaning the CUDA card; they raise when no
 card is present unless the caller passes ``device="cpu"``.  The package

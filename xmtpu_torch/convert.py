@@ -55,7 +55,11 @@ def schurq_from_numpy(x, device=None, kind: "str | None" = None):
     as int32); static fields (``psd_ok``, the bands) are kept and the
     reference's interpret flag is dropped.  ``kind`` names the class when
     ``x`` is a dict.  The two-float classes gain the ``bounds_l`` /
-    ``bounds_f`` fields of the port, rebuilt from their sorted ids.
+    ``bounds_f`` fields of the port, rebuilt from their sorted ids.  The
+    output of the reference's ``parallel.mesh.shard_schurq`` carries across
+    as it is: its phantom cameras, its zero-row-padded ``VT_inv`` and its
+    edge leaves padded with the last sorted id and zero coefficients leave
+    the applies unchanged (``np.asarray`` gathers each sharded array).
     """
     from xmtpu_torch.ops import schurq as sq
 

@@ -34,7 +34,9 @@ reference pads ``n`` to the TPU's 128 lanes; the port does not pad.
 
 Wrapper rule: a wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel (and counts the launch in its
-``launches`` attribute) or raises; it never falls back.
+``launches`` attribute) or raises; it never falls back.  The launch goes to
+the tensors' own card, whatever card is current (a device guard around the
+ctypes call).
 """
 
 from __future__ import annotations
@@ -367,9 +369,10 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
         return
     ptrs, n, o, dev = _step_ptrs("tcg_step", args, work)
     blocks, threads = step_geometry(n, o)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
-                            stream)
+    with torch.cuda.device(dev):    # ctypes launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
+                                stream)
     _raise_on(rc, "tcg_step")
     tcg_step.launches += 1
 
@@ -392,9 +395,10 @@ def tcg_step_dense(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
     ptrs, n, o, dev = _step_ptrs("tcg_step_dense", args, work)
     c_ptr = _check("C", C, (3 * n, 3 * n), dev)
     blocks, threads = dense_geometry(n, o)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().xm_tcg_step_dense(c_ptr, *ptrs, n, o, int(max_inner), blocks,
-                                  threads, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().xm_tcg_step_dense(c_ptr, *ptrs, n, o, int(max_inner),
+                                      blocks, threads, stream)
     _raise_on(rc, "tcg_step_dense")
     tcg_step_dense.launches += 1
 

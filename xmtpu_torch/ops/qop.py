@@ -3,8 +3,11 @@
 PyTorch counterpart of ``xmtpu/ops/qop.py``.  Every hot operation in the
 solver touches Q only through the product ``Q @ Y`` with a thin (3n, o)
 right-hand side, so the operator is a small class with ``apply``: the
-dense ``DenseQ``, its two-float form ``DenseQTF``, and the implicit
-``SchurQ`` family of ``ops/schurq.py``.
+dense ``DenseQ``, its two-float form ``DenseQTF``, the implicit
+``SchurQ`` family of ``ops/schurq.py``, and the operators sharded over a
+mesh of ``parallel/``.  Each operator casts and moves itself
+(:meth:`QOperator.cast`, :meth:`QOperator.to`), so a sharded operator is
+cast slab by slab and is never gathered onto one device by a move.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ class QOperator:
         solver's block-Jacobi tCG preconditioner."""
         return None
 
+    #: True for a dense matrix, whole or in row slabs: the mixed ladder
+    #: takes its f32 stages on the operator's own f32 cast
+    dense_rows = False
+
     @property
     def psd_by_construction(self) -> bool:
         """True when the operator is structurally PSD (a Schur complement of
@@ -40,6 +47,37 @@ class QOperator:
 
     def __call__(self, Y: torch.Tensor) -> torch.Tensor:
         return self.apply(Y)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of an apply's input and output: here, that of the
+        operator's first tensor field."""
+        for v in vars(self).values():
+            if isinstance(v, torch.Tensor):
+                return v.device
+        raise TypeError(f"{type(self).__name__} holds no tensor")
+
+    def cast(self, dtype) -> "QOperator":
+        """The operator with every floating-point tensor field cast to
+        ``dtype`` (index tensors and static fields untouched); casting below
+        f64 clears any structural-PSD claim (``psd_hint``, ``psd_ok``)."""
+        upd = {f.name: v.to(dtype) for f in dataclasses.fields(self)
+               if isinstance(v := getattr(self, f.name), torch.Tensor)
+               and v.is_floating_point()}
+        if dtype != torch.float64:
+            for flag in ("psd_hint", "psd_ok"):
+                if getattr(self, flag, False):
+                    upd[flag] = False
+        return dataclasses.replace(self, **upd)
+
+    def to(self, device) -> "QOperator":
+        """The operator with every tensor field on ``device`` (the operator
+        itself when they all are)."""
+        dev = torch.device(device)
+        upd = {f.name: v.to(dev) for f in dataclasses.fields(self)
+               if isinstance(v := getattr(self, f.name), torch.Tensor)
+               and v.device != dev}
+        return dataclasses.replace(self, **upd) if upd else self
 
 
 @dataclass
@@ -52,6 +90,7 @@ class DenseQ(QOperator):
 
     C: torch.Tensor
     psd_hint: bool = False
+    dense_rows = True
 
     @property
     def dim(self) -> int:
@@ -80,10 +119,11 @@ def q_apply(Q, Y: torch.Tensor) -> torch.Tensor:
 
 def as_qop(Q, device=None) -> QOperator:
     """Wrap a raw matrix (tensor or array) as a ``DenseQ`` (float types
-    kept, others cast to float64); with ``device``, move it (or an
-    operator's tensors) there."""
+    kept, others cast to float64); with ``device``, move it there (an
+    operator through its own :meth:`QOperator.to`: a sharded one stays on
+    its mesh and raises for another device)."""
     if isinstance(Q, QOperator):
-        return Q if device is None else move_qop(Q, device)
+        return Q if device is None else Q.to(device)
     if isinstance(Q, np.ndarray) and not Q.flags.writeable:
         Q = Q.copy()             # torch.as_tensor wants a writable buffer
     C = torch.as_tensor(Q, device=device)
@@ -141,30 +181,12 @@ def dense_two_float(C) -> DenseQTF:
 
 
 def cast_qop(Q, dtype) -> QOperator:
-    """Cast an operator's floating-point payload to ``dtype`` (index
-    tensors and static fields untouched; the implicit operators keep their
-    segment-sum bands).
+    """Cast an operator's floating-point payload to ``dtype`` through its
+    own :meth:`QOperator.cast` (a raw matrix is wrapped as ``DenseQ``
+    first).
 
     Casting below f64 CLEARS any structural-PSD claim (``DenseQ.psd_hint``,
     ``SchurQ.psd_ok``): the cast's ~1e-7 relative rounding exceeds the
     certificate's acceptance bound.
     """
-    Q = as_qop(Q)
-    upd = {f.name: v.to(dtype) for f in dataclasses.fields(Q)
-           if isinstance(v := getattr(Q, f.name), torch.Tensor)
-           and v.is_floating_point()}
-    if dtype != torch.float64:
-        for flag in ("psd_hint", "psd_ok"):
-            if getattr(Q, flag, False):
-                upd[flag] = False
-    return dataclasses.replace(Q, **upd)
-
-
-def move_qop(Q, device) -> QOperator:
-    """The operator with every tensor field on ``device`` (the operator
-    itself when they all are)."""
-    dev = torch.device(device)
-    upd = {f.name: v.to(dev) for f in dataclasses.fields(Q)
-           if isinstance(v := getattr(Q, f.name), torch.Tensor)
-           and v.device != dev}
-    return dataclasses.replace(Q, **upd) if upd else Q
+    return as_qop(Q).cast(dtype)

@@ -23,6 +23,13 @@ gives the exact f64 operator the same bits on every run, which
 the reference kernel's bounds (``max_band``), carried for parity with the
 reference; neither route reads them.
 
+Every apply reaches its arrays through three seams: ``_cam`` (per-camera
+products, on the camera leaves), ``_esum`` (edge rows and their sorted
+segment sums, by landmark or by frame) and ``_vt`` (the ``VT_inv`` GEMM).
+Here each runs on the whole operator; the camera-sharded operator of
+``parallel/sharded.py`` runs the same stage code slot by slot through its
+own seams.
+
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
 Newton-Schulz) stays selectable.
@@ -69,6 +76,47 @@ def _sorted_scatter_sum(vals, ids, size: int):
     out = vals.new_zeros(size)
     out[uniq] = _seg(vals, run, bounds.to(torch.int32), len(uniq))
     return out
+
+
+# ---- the stage arithmetic on one piece ``q`` of an operator (the whole
+# operator, or one slot of a sharded one): per-camera products, and the rows
+# of each edge before their segment sum.  ``q`` gives the fields by name.
+
+def _q1_apply(q, Yb):
+    return torch.einsum("nab,nbo->nao", q.Q1, Yb)
+
+
+def _v1_dot(q, Yb):
+    return torch.einsum("na,nao->no", q.V1, Yb)
+
+
+def _v1_outer(q, z_t):
+    return torch.einsum("na,no->nao", q.V1, z_t)
+
+
+def _wx_dot_rows(q, Yf):
+    """``sum_a wx_l[:, a] * Y[f_l, a-th column block]`` (l-sorted)."""
+    o = Yf.shape[1] // 3
+    g = Yf[q.f_l]
+    t = None
+    for a in range(3):
+        ta = q.wx_l[:, a:a + 1] * g[:, a * o:(a + 1) * o]
+        t = ta if t is None else t + ta
+    return t
+
+
+def _wx_outer_rows(q, z_B):
+    """``wx_f[:, a] * z_B[l_f]`` as column blocks (f-sorted)."""
+    zg = z_B[q.l_f]
+    return torch.cat([q.wx_f[:, a:a + 1] * zg for a in range(3)], dim=1)
+
+
+def _cf_f_rows(q, z_B):
+    return q.cf_f[:, None] * z_B[q.l_f]
+
+
+def _cf_l_rows(q, x_pad):
+    return q.cf_l[:, None] * x_pad[q.f_l]
 
 
 def _bands(l_l, f_f):
@@ -188,18 +236,31 @@ class SchurQ(QOperator):
     def dim(self) -> int:
         return 3 * self.n_cameras
 
+    # ---- the seams (module doc) ----
+
+    def _cam(self, fn, *xs):
+        """``fn(self, *xs)`` on the camera leaves; ``xs`` are camera-major."""
+        return fn(self, *xs)
+
+    def _esum(self, order: str, fn, *xs):
+        """Sorted segment sums of the edge rows ``fn(self, *xs)`` by
+        landmark (``order="l"``) or by frame (``"f"``)."""
+        if order == "l":
+            return _seg(fn(self, *xs), self.l_l, self.bounds_l,
+                        self.n_landmarks)
+        return _seg(fn(self, *xs), self.f_f, self.bounds_f, self.n_cameras)
+
+    def _vt(self, rhs):
+        """``VT_inv @ rhs`` (padded rows included)."""
+        return self.VT_inv @ rhs
+
     # ---- structured pieces ----
 
     def _vtpT(self, Yb):
         """``Vtp_bar^T Y``: (n,3,o) -> (b_A (n-1,o), b_B (m,o))."""
         n, _, o = Yb.shape
-        b_A = torch.einsum("na,nao->no", self.V1, Yb)[1:]
-        g = Yb.reshape(n, 3 * o)[self.f_l]
-        t = None
-        for a in range(3):
-            ta = self.wx_l[:, a:a + 1] * g[:, a * o:(a + 1) * o]
-            t = ta if t is None else t + ta
-        b_B = -_seg(t, self.l_l, self.bounds_l, self.n_landmarks)
+        b_A = self._cam(_v1_dot, Yb)[1:]
+        b_B = -self._esum("l", _wx_dot_rows, Yb.reshape(n, 3 * o))
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
@@ -207,31 +268,25 @@ class SchurQ(QOperator):
         n = self.n_cameras
         o = z_B.shape[-1]
         z_t = torch.cat([torch.zeros_like(z_A[:1]), z_A], dim=0)
-        out = torch.einsum("na,no->nao", self.V1, z_t)
-        zg = z_B[self.l_f]
-        contrib = torch.cat([self.wx_f[:, a:a + 1] * zg for a in range(3)],
-                            dim=1)
-        red = _seg(contrib, self.f_f, self.bounds_f, n)
+        out = self._cam(_v1_outer, z_t)
+        red = self._esum("f", _wx_outer_rows, z_B)
         return out - red.reshape(n, 3, o)
 
     def _v3f(self, z_B):
         """``V3F z_B``: (m, o) -> (n-1, o)."""
-        out = _seg(self.cf_f[:, None] * z_B[self.l_f], self.f_f,
-                   self.bounds_f, self.n_cameras)
-        return out[1:]
+        return self._esum("f", _cf_f_rows, z_B)[1:]
 
     def _v3fT(self, x_A):
         """``V3F^T x_A``: (n-1, o) -> (m, o)."""
         x_pad = torch.cat([torch.zeros_like(x_A[:1]), x_A], dim=0)
-        return _seg(self.cf_l[:, None] * x_pad[self.f_l], self.l_l,
-                    self.bounds_l, self.n_landmarks)
+        return self._esum("l", _cf_l_rows, x_pad)
 
     def solve_M(self, b_A, b_B):
         """Exact solve of ``Mbar [x_A; x_B] = [b_A; b_B]`` (padded
         ``VT_inv`` rows are sliced off)."""
         t = self.inv_sqrt_q3[:, None] * b_B
         rhs = b_A + self._v3f(t)
-        x_A = (self.VT_inv @ rhs)[: b_A.shape[0]]
+        x_A = self._vt(rhs)[: b_A.shape[0]]
         x_B = (self.inv_q3[:, None] * b_B
                + self.inv_sqrt_q3[:, None] * self._v3fT(x_A))
         return x_A, x_B
@@ -241,7 +296,7 @@ class SchurQ(QOperator):
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         n = self.n_cameras
         Yb = Y.reshape(n, 3, Y.shape[-1])
-        out = torch.einsum("nab,nbo->nao", self.Q1, Yb)
+        out = self._cam(_q1_apply, Yb)
         b_A, b_B = self._vtpT(Yb)
         z_A, z_B = self.solve_M(b_A, b_B)
         out = out - self._vtp(z_A, z_B)
@@ -342,6 +397,38 @@ def _wx_outer3(wh, wl, zh, zl):
     return th, tl
 
 
+def _wx_dot_rows2(q, Yh, Yl):
+    """Two-float :func:`_wx_dot_rows`: ``(th, tl)``."""
+    o = Yh.shape[1] // 3
+    return _wx_dot3(q.wxh_l, q.wxl_l, Yh[q.f_l], Yl[q.f_l], o)
+
+
+def _wx_outer_rows2(q, zh, zl):
+    """Two-float :func:`_wx_outer_rows`: ``(th, tl)``."""
+    return _wx_outer3(q.wxh_f, q.wxl_f, zh[q.l_f], zl[q.l_f])
+
+
+def _cf_f_rows2(q, zh, zl):
+    gh, gl = zh[q.l_f], zl[q.l_f]
+    return (q.cfh_f[:, None] * gh,
+            q.cfh_f[:, None] * gl + q.cfl_f[:, None] * gh)
+
+
+def _cf_l_rows2(q, xh, xl):
+    gh, gl = xh[q.f_l], xl[q.f_l]
+    return (q.cfh_l[:, None] * gh,
+            q.cfh_l[:, None] * gl + q.cfl_l[:, None] * gh)
+
+
+def _hi_lo_rows(fn):
+    """Edge rows ``fn -> (hi, lo)`` as one ``(E, 2D)`` block hi|lo."""
+    def rows(q, *xs):
+        hi, lo = fn(q, *xs)
+        E = hi.shape[0]
+        return torch.cat([hi.reshape(E, -1), lo.reshape(E, -1)], dim=1)
+    return rows
+
+
 @dataclass
 class SchurQEdgeF32(QOperator):
     """SchurQ with the edge reductions in two-float f32 (hi/lo pairs, the
@@ -387,55 +474,70 @@ class SchurQEdgeF32(QOperator):
     def diag_blocks(self):
         return self.Q1
 
-    def _seg2(self, hi, lo, ids, bounds, num):
-        """Two f32 segment sums combined in f64, as one
-        ``sorted_segment_sum`` over the concatenated hi|lo columns."""
-        dt = self.Q1.dtype
-        E = hi.shape[0]
-        both = torch.cat([hi.reshape(E, -1), lo.reshape(E, -1)], dim=1)
-        s2 = _seg(both, ids, bounds, num)
-        d = both.shape[1] // 2
-        out = s2[:, :d].to(dt) + s2[:, d:].to(dt)
-        return out.reshape((num,) + tuple(hi.shape[1:]))
+    _cam = SchurQ._cam
+    _esum = SchurQ._esum
+    _vt = SchurQ._vt
+
+    def _esum2(self, order: str, fn, *xs):
+        """Two f32 segment sums of the edge rows ``fn -> (hi, lo)``
+        combined in the working dtype, as one sorted segment sum over the
+        concatenated hi|lo columns."""
+        s2 = self._esum(order, _hi_lo_rows(fn), *xs)
+        d = s2.shape[1] // 2
+        dt = self.inv_q3.dtype
+        return s2[:, :d].to(dt) + s2[:, d:].to(dt)
 
     def _vtpT(self, Yb):
         n, _, o = Yb.shape
-        b_A = torch.einsum("na,nao->no", self.V1, Yb)[1:]
+        b_A = self._cam(_v1_dot, Yb)[1:]
         Yh, Yl = split_f32(Yb.reshape(n, 3 * o))
-        gh, gl = Yh[self.f_l], Yl[self.f_l]
-        th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
+        b_B = -self._esum2("l", _wx_dot_rows2, Yh, Yl)
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
         n = self.n_cameras
         o = z_B.shape[-1]
         z_t = torch.cat([torch.zeros_like(z_A[:1]), z_A], dim=0)
-        out = torch.einsum("na,no->nao", self.V1, z_t)
+        out = self._cam(_v1_outer, z_t)
         zh, zl = split_f32(z_B)
-        gh, gl = zh[self.l_f], zl[self.l_f]
-        th, tl = _wx_outer3(self.wxh_f, self.wxl_f, gh, gl)
-        red = self._seg2(th, tl, self.f_f, self.bounds_f, n)
+        red = self._esum2("f", _wx_outer_rows2, zh, zl)
         return out - red.reshape(n, 3, o)
 
     def _v3f(self, z_B):
         zh, zl = split_f32(z_B)
-        gh, gl = zh[self.l_f], zl[self.l_f]
-        th = self.cfh_f[:, None] * gh
-        tl = self.cfh_f[:, None] * gl + self.cfl_f[:, None] * gh
-        return self._seg2(th, tl, self.f_f, self.bounds_f, self.n_cameras)[1:]
+        return self._esum2("f", _cf_f_rows2, zh, zl)[1:]
 
     def _v3fT(self, x_A):
         x_pad = torch.cat([torch.zeros_like(x_A[:1]), x_A], dim=0)
         xh, xl = split_f32(x_pad)
-        gh, gl = xh[self.f_l], xl[self.f_l]
-        th = self.cfh_l[:, None] * gh
-        tl = self.cfh_l[:, None] * gl + self.cfl_l[:, None] * gh
-        return self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
+        return self._esum2("l", _cf_l_rows2, xh, xl)
 
     solve_M = SchurQ.solve_M
     apply = SchurQ.apply
     recover_y = SchurQ.recover_y
+
+
+def _v1_dot_tf(q, Yh, Yl, dt):
+    """Two-float :func:`_v1_dot` on the hi/lo ``V1`` pair, in ``dt``."""
+    bh, bl = _wx_dot3(q.v1h, q.v1l, Yh, Yl, Yh.shape[1] // 3)
+    return bh.to(dt) + bl.to(dt)
+
+
+def _v1_outer_tf(q, zth, ztl, dt):
+    """Two-float :func:`_v1_outer` as ``(n, 3o)`` column blocks, in ``dt``."""
+    oh, ol = _wx_outer3(q.v1h, q.v1l, zth, ztl)
+    return oh.to(dt) + ol.to(dt)
+
+
+def _q1_apply_tf(q, Yh, Yl, dt):
+    """Two-float :func:`_q1_apply` on the hi/lo ``Q1`` pair, in ``dt``."""
+    o = Yh.shape[1] // 3
+    outs_h, outs_l = [], []
+    for a in range(3):
+        th, tl = _wx_dot3(q.q1h[:, a, :], q.q1l[:, a, :], Yh, Yl, o)
+        outs_h.append(th)
+        outs_l.append(tl)
+    return torch.stack(outs_h, 1).to(dt) + torch.stack(outs_l, 1).to(dt)
 
 
 @dataclass
@@ -479,60 +581,42 @@ class SchurQTF(QOperator):
     def diag_blocks(self):
         return self.Q1
 
-    _seg2 = SchurQEdgeF32._seg2
+    _cam = SchurQ._cam
+    _esum = SchurQ._esum
+    _esum2 = SchurQEdgeF32._esum2
     _v3f = SchurQEdgeF32._v3f
     _v3fT = SchurQEdgeF32._v3fT
+    solve_M = SchurQ.solve_M
+
+    def _vt(self, rhs):
+        """The two-float ``VT_inv @ rhs``."""
+        return tf_gemm(self.vth, self.vtl, rhs)
 
     def _vtpT(self, Yb):
         n, _, o = Yb.shape
         Yh, Yl = split_f32(Yb.reshape(n, 3 * o))
-        dt = self.inv_q3.dtype
-        bh, bl = _wx_dot3(self.v1h, self.v1l, Yh, Yl, o)
-        b_A = (bh.to(dt) + bl.to(dt))[1:]
-        gh, gl = Yh[self.f_l], Yl[self.f_l]
-        th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
+        b_A = self._cam(_v1_dot_tf, Yh, Yl, self.inv_q3.dtype)[1:]
+        b_B = -self._esum2("l", _wx_dot_rows2, Yh, Yl)
         return b_A, b_B
 
     def _vtp(self, z_A, z_B):
         n = self.n_cameras
         o = z_B.shape[-1]
-        dt = self.inv_q3.dtype
         z_t = torch.cat([torch.zeros_like(z_A[:1]), z_A], dim=0)
         zth, ztl = split_f32(z_t)
-        oh, ol = _wx_outer3(self.v1h, self.v1l, zth, ztl)      # (n, 3o)
-        out = oh.to(dt) + ol.to(dt)
+        out = self._cam(_v1_outer_tf, zth, ztl, self.inv_q3.dtype)  # (n, 3o)
         zh, zl = split_f32(z_B)
-        gh, gl = zh[self.l_f], zl[self.l_f]
-        th, tl = _wx_outer3(self.wxh_f, self.wxl_f, gh, gl)
-        red = self._seg2(th, tl, self.f_f, self.bounds_f, n)
+        red = self._esum2("f", _wx_outer_rows2, zh, zl)
         return (out - red.reshape(n, 3 * o)).reshape(n, 3, o)
-
-    def solve_M(self, b_A, b_B):
-        t = self.inv_sqrt_q3[:, None] * b_B
-        rhs = b_A + self._v3f(t)
-        x_A = tf_gemm(self.vth, self.vtl, rhs)[: b_A.shape[0]]
-        x_B = (self.inv_q3[:, None] * b_B
-               + self.inv_sqrt_q3[:, None] * self._v3fT(x_A))
-        return x_A, x_B
 
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         n = self.n_cameras
         o = Y.shape[-1]
         dt = Y.dtype
         Yh, Yl = split_f32(Y.reshape(n, 3 * o))    # one split feeds all
-        outs_h, outs_l = [], []
-        for a in range(3):
-            th, tl = _wx_dot3(self.q1h[:, a, :], self.q1l[:, a, :], Yh, Yl, o)
-            outs_h.append(th)
-            outs_l.append(tl)
-        out = (torch.stack(outs_h, 1).to(dt)
-               + torch.stack(outs_l, 1).to(dt))            # (n, 3, o)
-        bh, bl = _wx_dot3(self.v1h, self.v1l, Yh, Yl, o)
-        b_A = (bh.to(dt) + bl.to(dt))[1:]
-        gh, gl = Yh[self.f_l], Yl[self.f_l]
-        th, tl = _wx_dot3(self.wxh_l, self.wxl_l, gh, gl, o)
-        b_B = -self._seg2(th, tl, self.l_l, self.bounds_l, self.n_landmarks)
+        out = self._cam(_q1_apply_tf, Yh, Yl, dt)            # (n, 3, o)
+        b_A = self._cam(_v1_dot_tf, Yh, Yl, dt)[1:]
+        b_B = -self._esum2("l", _wx_dot_rows2, Yh, Yl)
         z_A, z_B = self.solve_M(b_A, b_B)
         out = out - self._vtp(z_A, z_B)
         return out.reshape(3 * n, o)

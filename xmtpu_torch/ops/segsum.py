@@ -225,10 +225,11 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
     ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
             _check("offsets", offsets, (num_segments + 1,), dev, torch.int32),
             _check("out", out, (num_segments, D), dev, vals.dtype)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_lib(), f"xm_segsum_{sfx}")(
-        *ptrs, num_segments, D, csr_threads(num_segments, D),
-        csr_batch(E, num_segments, D), stream)
+    with torch.cuda.device(dev):    # ctypes launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_lib(), f"xm_segsum_{sfx}")(
+            *ptrs, num_segments, D, csr_threads(num_segments, D),
+            csr_batch(E, num_segments, D), stream)
     _raise_on(rc, "sorted_segment_sum")
     sorted_segment_sum.launches += 1
     key = f"{sfx} D={D}"
@@ -272,9 +273,10 @@ def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
     ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
             _check("seg_ids", seg_ids, (E,), dev, torch.int32),
             _check("out", out, (num_segments, D), dev, vals.dtype)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_lib(), f"xm_segsum_blocked_{sfx}")(
-        *ptrs, G, num_segments, chunk, seg_block, D, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_lib(), f"xm_segsum_blocked_{sfx}")(
+            *ptrs, G, num_segments, chunk, seg_block, D, stream)
     _raise_on(rc, "sorted_segment_sum_blocked")
     sorted_segment_sum_blocked.launches += 1
     return out

@@ -16,13 +16,6 @@ import torch
 from xmtpu_torch.ops.qop import as_qop
 
 
-def _operator_device(Q) -> torch.device:
-    for v in vars(as_qop(Q)).values():
-        if isinstance(v, torch.Tensor):
-            return v.device
-    return torch.device("cpu")
-
-
 def _round(R, s, lam, qop, verbose):
     """Shared rounding.  Returns ``(R_real (3, 3N), s_real (N,), sR_real
     (3, 3N))``."""
@@ -43,7 +36,7 @@ def _round(R, s, lam, qop, verbose):
                 print("Optimal rank is 3")
         else:
             # <Q, X_new - X> through the factors: tr(A^T Q A) - tr(B^T Q B)
-            dev = _operator_device(qop)
+            dev = qop.device
             A = torch.as_tensor(sR_real.T.copy(), device=dev)
             B = torch.as_tensor(sR, device=dev)
             subopt = (float(torch.sum(A * qop.apply(A))
@@ -86,7 +79,7 @@ def recover_XM_implicit(Q, R, s, lam, verbose: bool = True):
     translation/landmark solve is ``Q.recover_y``.  Returns ``(R_real,
     s_real, p_est, t_est)`` as :func:`recover_XM`."""
     R_real, s_real, sR_real = _round(R, s, lam, Q, verbose)
-    sRt = torch.as_tensor(sR_real.T.copy(), device=_operator_device(Q))
+    sRt = torch.as_tensor(sR_real.T.copy(), device=as_qop(Q).device)
     ybar_est = Q.recover_y(sRt).cpu().numpy()
     t_est, p_est = _split_y(ybar_est, s_real.shape[0])
     return R_real, s_real, p_est, t_est

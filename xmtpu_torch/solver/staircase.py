@@ -22,6 +22,8 @@ sizes).  An implicit operator runs its stages through the unfused solvers,
 on the two-float operator with ``edge_tf`` / ``edge_f32`` (stopping at the
 first zero-accept collapse cycle, the final primal re-read through the
 exact operator), and certifies through the matvec flow on the exact one.
+So does a sharded dense operator (``parallel/``): it has no whole matrix
+for the Cholesky probe, and its f32 cast is made slab by slab.
 """
 
 from __future__ import annotations
@@ -303,11 +305,13 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         Cq = DenseQ(Cq.C.to(torch.float64), Cq.psd_hint)
     n = Cq.dim // 3
     want32 = precision == "mixed" or inner_f32
-    C32q = cast_qop(Cq, torch.float32) if dense and want32 else None
+    # a dense matrix, whole or in row slabs (its f32 cast made slab by slab)
+    rows = Cq.dense_rows
+    C32q = cast_qop(Cq, torch.float32) if rows and want32 else None
     stage_q, stage_q32 = Cq, None
-    if edge_tf and not dense:
+    if edge_tf and not rows:
         stage_q = Cq.two_float(pallas=edge_pallas)
-    elif edge_f32 and not dense:
+    elif edge_f32 and not rows:
         stage_q = Cq.edge_f32(pallas=edge_pallas)
     if stage_q is not Cq and want32:
         # inner tCG / f32 phase cast from the BASE operator: single product
@@ -364,7 +368,7 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                               chunk=chunk_n)
             res = tr.continue_chunks(
                 stage_q, st, mid_resume.lam, gradtol, delta_bar, cfg,
-                Q32=(C32q if dense else stage_q32) if inner_f32 else None,
+                Q32=(C32q if rows else stage_q32) if inner_f32 else None,
                 k_done=mid_resume.k_done,
                 deadline=time.monotonic() + max_time,
                 checkpoint_path=mid_path, ckpt_meta=meta)
@@ -385,7 +389,7 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         else:
             res = _stage(stage_q, R0, s_ex, lam, gradtol, max_time,
                          escape_dir, verbose, precision, inner_f32,
-                         Q32=C32q if dense else stage_q32,
+                         Q32=C32q if rows else stage_q32,
                          checkpoint_path=mid_path, ckpt_meta=meta,
                          stop_on_collapse=stage_q is not Cq, chunk=chunk_n)
             if stage_q is not Cq and res.done_reason != tr.DONE_LINESEARCH_FAIL:
@@ -434,7 +438,11 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         gap, lam_min = float(cert.gap), float(cert.lam_min)
         stages.append(dict(
             rank=o, stage_s=t_stage, cert_s=cert_s,
-            fused=cert_pre is not None, outer=int(outer_v),
+            fused=cert_pre is not None,
+            # the deciding branch of the matvec flow; "dense" for the
+            # Cholesky probe on the whole matrix
+            cert_path=(cert.info or {}).get("path", "dense"),
+            outer=int(outer_v),
             inner=int(inner_v), reason=int(reason_v), primal=float(primal_v),
             certified=bool(cert.certified), gap=gap, lam_min=lam_min))
 
