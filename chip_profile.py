@@ -20,7 +20,15 @@ times the kernels alone instead (:func:`kernel_times`), once for the
 each in a process of its own, one JSON line each: an unpacked parent commit
 and this checkout, given as ``parent . . parent``, compare on one card
 (this checkout's ``chip_smoke.py`` times both; a tree without the
-one-launch dense kernel is timed through its two).
+one-launch dense kernel is timed through its two).  Before them it prints
+the card's probes, which
+
+    python3 chip_profile.py --probe
+
+prints alone (:func:`card_probe`: the dependent add's latency and an
+empty launch, which ``chip_smoke.py`` also measures in every run for its
+chain floors; the L2 and device-memory read rates, the L2's the source of
+``chip_smoke.py``'s ``L2_READ_BYTES``).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -184,6 +192,124 @@ def _csr_inputs(Q, dev, order, D, dt):
     return vals, ids, off, S
 
 
+# the sorted_segment_sum layouts of scene D's tail and last stage (E rows,
+# S segments, the longest; the segments that hold rows; D), as chip_smoke.py
+# records them from the main path; long_layout() draws lengths with that
+# profile
+LONG_LAYOUTS = {
+    "BATA dst": (297_217, 7_581, 65, 7_581, (3,)),
+    "BATA src": (297_217, 7_581, 2_543, 200, (3,)),
+    "BA image": (258_811, 200, 2_358, 200, (6, 12, 36)),
+    "BA track": (258_811, 7_381, 64, 7_381, (3, 9)),
+    "BA camera": (200, 1, 200, 1, (6, 36)),
+    "tri track": (297_217, 7_381, 65, 7_381, (1, 16)),
+    "refine frame": (87_817, 200, 925, 200, (6,)),
+    "refine landmark": (87_817, 4_366, 63, 4_366, (3,)),
+}
+
+
+def long_layout(E, S, longest, held, seed=0):
+    """CSR offsets (S+1,) of E rows in S segments whose first ``held`` hold
+    rows, one of them ``longest`` rows long, the others drawn evenly."""
+    rng = np.random.default_rng(seed)
+    L = np.zeros(S, np.int64)
+    L[0] = longest
+    if held > 1:
+        L[1:held] = rng.multinomial(E - longest, np.full(held - 1,
+                                                          1 / (held - 1)))
+        L[1:held] = np.minimum(L[1:held], longest)
+    L[0] += E - L.sum()
+    return np.concatenate([[0], np.cumsum(rng.permutation(L))])
+
+
+def card_probe(dev, cs) -> dict:
+    """The card's numbers under ``chip_smoke.py``'s floors (module ``cs``),
+    by ``csrc/probe.cu``: the chain floor's terms (``cs.measure_floors``:
+    one dependent f32 and f64 add, an empty launch); the L2's read rate,
+    the best over buffers that fit the 50 MB L2 (4 to 40 MB, each launch
+    reading its buffer again and again, 1 GiB in all), grids of 1 to 16
+    blocks an SM of 256 to 1024 threads (at most 2,048 threads an SM) and
+    1, 4 or 8 loads in flight a thread; and device memory's, a 4 GiB
+    buffer read once by the same grids.  Each rate is bytes over the CUDA
+    events' time of 5 launches, with the best configuration."""
+    import torch
+
+    lib = cs.probe_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(4, dtype=torch.float64, device=dev)
+    rec = dict(cs.measure_floors(dev))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    configs = [(b * sms, t, u) for t in (256, 512, 1024)
+               for b in (1, 2, 4, 8, 16) if b * t <= 2048
+               for u in (1, 4, 8)]
+
+    def best_rate(nbytes, passes):
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        best = (0.0, None)
+        for blocks, threads, unroll in configs:
+            ms = cs.cuda_ms(lambda: cs.launched(lib.xm_probe_read(
+                buf.data_ptr(), nbytes // 16, passes, blocks, threads,
+                unroll, out.data_ptr(), stream), "read"), 5)
+            rate = nbytes * passes / (ms * 1e-3)
+            if rate > best[0]:
+                best = (rate, dict(blocks=blocks, threads=threads,
+                                   unroll=unroll))
+        return best
+
+    rec["l2_by_size"] = {f"{mb} MB": best_rate(mb << 20, (1 << 30) // (
+        mb << 20)) for mb in (4, 8, 16, 24, 32, 40)}
+    rec["l2_read_bytes_s"] = max(r for r, _ in rec["l2_by_size"].values())
+    rec["hbm_read"] = best_rate(4 << 30, 1)
+    return rec
+
+
+def long_times(dev, cs, ss) -> dict:
+    """``sorted_segment_sum`` on :data:`LONG_LAYOUTS`, f64, for the
+    ``segsum`` given (a parent tree's has no plan): device ms a launch
+    beside ``index_add_``; where plans exist, the short-segment walk alone
+    on the same offsets, and the kernel at other thresholds and stage
+    sizes."""
+    import torch
+
+    res = {}
+    for name, (E, S, longest, held, Ds) in LONG_LAYOUTS.items():
+        off = long_layout(E, S, longest, held)
+        ids = torch.as_tensor(np.repeat(np.arange(S), np.diff(off)),
+                              device=dev)
+        for D in Ds:
+            gen = torch.Generator().manual_seed(D)
+            vals = torch.randn((E, D), generator=gen,
+                               dtype=torch.float64).to(dev)
+            acc = torch.zeros((S, D), dtype=torch.float64, device=dev)
+
+            def kernel(o):
+                return cs.launch_ms(lambda: ss.sorted_segment_sum(
+                    vals, ids, S, offsets=o), 50)
+
+            plain = torch.as_tensor(off, dtype=torch.int32, device=dev)
+            r = dict(library_ms=cs.launch_ms(
+                lambda: acc.index_add_(0, ids, vals), 50))
+            if not hasattr(ss, "planned_offsets"):
+                r["ms"] = kernel(plain)
+                res[f"{name} D={D}"] = r
+                continue
+            r["ms"] = kernel(ss.planned_offsets(off, dev, name))
+            r["short_walk_ms"] = kernel(plain)
+            keep = ss.CSR_LONG, ss.LONG_STAGE_BYTES, ss.LONG_WIDE_STAGE_BYTES
+            for long_rows in (32, 64, 256, 512):
+                ss.CSR_LONG = long_rows
+                r[f"long_rows {long_rows}"] = kernel(
+                    ss.planned_offsets(off, dev, name))
+            ss.CSR_LONG = keep[0]
+            for stage in (16384, 24576, 32768):
+                ss.LONG_STAGE_BYTES = ss.LONG_WIDE_STAGE_BYTES = stage
+                r[f"stage {stage}"] = kernel(ss.planned_offsets(off, dev,
+                                                                name))
+            ss.CSR_LONG, ss.LONG_STAGE_BYTES, ss.LONG_WIDE_STAGE_BYTES = keep
+            res[f"{name} D={D}"] = r
+    return res
+
+
 def kernel_times(dev) -> dict:
     """For the ``xmtpu_torch`` first on ``sys.path``: ``tcg_step`` at scenes
     A, B and C (n = 120, 1934, 6144; o = 3, the first outer iteration of
@@ -194,7 +320,8 @@ def kernel_times(dev) -> dict:
     segment sums on scene C's orderings as ``chip_smoke.py`` times them,
     and, where ``segsum.csr_threads`` exists, an empty kernel of each CSR
     case's grid and of a 256-thread grid (one thread an output), and the
-    CSR kernel at other block sizes and batches (1 or 16)."""
+    CSR kernel at other block sizes and batches (1 or 16); and the segment
+    sum on scene D's tail and refine layouts (:func:`long_times`)."""
     import importlib.util
 
     import torch
@@ -262,6 +389,7 @@ def kernel_times(dev) -> dict:
     out["segsum"] = [dict(kernel=c["kernel"], tag=c["tag"], ms=c["ms"],
                           library_ms=c["library_ms"], bound_ms=c["bound"][0])
                      for c in cs.hold_segsum(Q_C, dev)]
+    out["long"] = long_times(dev, cs, ss)
     if hasattr(ss, "csr_threads"):
         lib = ss._lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -302,11 +430,15 @@ def main() -> int:
         print("chip_profile: no CUDA device available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if sys.argv[1:2] == ["--kernels"]:
+    if sys.argv[1:2] in (["--kernels"], ["--probe"]):
         sys.path.insert(0, here)
         import chip_smoke as cs
 
         print(cs.card_line(), flush=True)
+        print(json.dumps({"probe": card_probe(torch.device("cuda"), cs)}),
+              flush=True)
+        if sys.argv[1] == "--probe":
+            return 0
         # each tree's kernels in a process of its own, in the order given
         for root in sys.argv[2:] or [here]:
             subprocess.run([sys.executable, os.path.abspath(__file__),

@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; no phase is caught):
 
-1. build the CUDA kernels from ``xmtpu_torch/csrc`` (nvcc, all at once);
+1. build the CUDA kernels from ``xmtpu_torch/csrc`` (nvcc, all at once),
+   and measure the chain floor's terms (:func:`measure_floors`);
 2. hold each kernel against its plain PyTorch version on the card, on real
    f32-phase inputs (the first outer iteration of a stage, and one later in
    the phase where the Steihaug loop runs long): one inner iteration, two
@@ -26,8 +27,10 @@ Phases (any failure exits non-zero; no phase is caught):
    plain twin on its real orderings (landmark and frame, D in {3, 6, 9, 18},
    f32 and f64, the blocked one on ``schedule_edges``' layout of the landmark
    ordering), two launches must give the same bits, and each is timed beside
-   its bound and ``index_add_``, the CSR kernel also bit for bit against the
-   CPU twin; then ``tcg_step`` is held as in phase 2 at
+   its bound, its chain floor, the earlier design's time and
+   ``index_add_``, the CSR
+   kernel also bit for bit against the CPU twin; then ``tcg_step`` is held
+   as in phase 2 at
    n=6144 (the split variant on the f32 cast of ``Q_C``, the f64 loop on
    ``Q_C``), at the phase's first outer iteration and at ``LONG_C``;
 6. scene B through ``SchurQ`` (the mixed ladder on the two-float operator,
@@ -56,9 +59,12 @@ Phases (any failure exits non-zero; no phase is caught):
    rank within 5e-3 of its primal and 1.5x its rotation errors; the
    implicit route at its default tol certified at the rank of the dense
    route on its observations at the lam it picked, within 5e-3 of that
-   primal; and ``calibrate_view_graph`` within 1 % of the focal and 1e-6
-   of the JAX package's; per-stage seconds and the phase's device memory
-   peak above what it started with;
+   primal; ``sorted_segment_sum`` on each frame ordering the two implicit
+   runs' ``SchurQ`` operators built, through their planned offsets, at
+   every type and width those runs summed by frame, as in phase 10; and
+   ``calibrate_view_graph`` within 1 % of the focal and 1e-6 of the JAX
+   package's; per-stage seconds and the phase's device memory peak above
+   what it started with;
 10. scene D's mapper again with its tail stages 5-8 on (``--skip_* 0``):
    the observations after stages 5, 6 and 7, the tracks positioned, the
    strong clusters and the images kept held against the JAX package's;
@@ -66,13 +72,15 @@ Phases (any failure exits non-zero; no phase is caught):
    1e-6 / 1e-5 of the JAX package's; the errors against ground truth
    (rotations after a global rotation, centres after a similarity) within
    1.5x of the JAX package's; every f64 segment-sum shape of the tail
-   launched, and no camera sum over the edges; a second
-   ``global_positioning`` and positions-only ``bundle_adjustment`` call,
-   traced, giving the same bits; ``sorted_segment_sum`` on the layouts the
-   run built (BATA's two, BA's image, track and camera ones, the
-   triangulation's tracks) the CPU twin's bits twice, timed beside
-   ``index_add_``; per-stage seconds, launches by shape, the BA loops' host
-   reads and the phase's device memory peak;
+   launched, every named layout launched, and no camera sum over the
+   edges; a second ``global_positioning`` and positions-only
+   ``bundle_adjustment`` call, traced, giving the same bits;
+   ``sorted_segment_sum`` on the layouts the run built (BATA's two, BA's
+   image, track and camera ones, the triangulation's tracks), through
+   their planned offsets: the CPU twin's bits twice, one launch a call,
+   timed beside ``index_add_``, the byte bound, the chain floor and the
+   earlier design's time; per-stage seconds, launches by shape and by layout, the BA loops'
+   host reads and the phase's device memory peak;
 11. XM-SfM's last stage on scene D (``examples/05_refine.py``'s flow):
    phase 9's lifted observations with a thirtieth of the rows moved as
    planted outliers, ``relpose_filter`` with phase 9's exported relative
@@ -81,9 +89,9 @@ Phases (any failure exits non-zero; no phase is caught):
    ``refine_bundle`` on its output: LM steps, final cost and the refined
    rotations and centres against the JAX package's, GT errors within 1.5x
    of its, the mean reprojection error falling, one host read a LM step and
-   ``sorted_segment_sum`` at the refine's f64 shapes; the kernel on the
-   refine's two layouts (by frame, by landmark) the CPU twin's bits twice,
-   timed beside ``index_add_``; the tiny monodepth net on the card against
+   ``sorted_segment_sum`` at the refine's f64 shapes and on both its named
+   layouts; the kernel on the refine's two layouts (by frame, by landmark)
+   as in phase 10; the tiny monodepth net on the card against
    the port on the CPU and the JAX package's recorded numbers; a second
    ``refine_bundle`` call with the same bits; and a short call (5 LM
    steps) traced: its launches, no scalar read, no copy to the host beyond
@@ -119,18 +127,28 @@ A kernel's ``ms`` is its time on the card per launch (profiler durations);
 complete (CUDA events), which the host bounds at these sizes; ``plain_ms``
 is the plain version's time per call by CUDA events, its host syncs
 included; ``bound_ms`` is the larger of the bytes it must move over the
-HBM rate and its operations over the f32 (f64) peak; ``library_ms`` is the
-card's time for ``torch.matmul`` on the same W (the dense variant's
-product) or for one ``index_add_`` on the same tensors (segment sums, whose
-plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
+L2's read rate (:data:`L2_READ_BYTES`, an achieved rate, not a published
+peak; past the L2's 50 MB, over the HBM rate: launches timed again and
+again keep up to that much of their inputs in L2; ``bound_basis`` says
+which) and its operations over the f32 (f64) peak; a segment sum's
+``chain_floor_ms`` is its longest segment's chain of dependent adds at the
+add latency measured in this run, plus an empty launch measured in this
+run (``floors`` on its row), the floor under its contract (each segment
+added in row order);
+``library_ms`` is the card's time for ``torch.matmul`` on the same W (the
+dense variant's product) or for one ``index_add_`` on the same tensors
+(segment sums, whose plain twin is ``zeros`` + ``index_add_``).  Each kernel's ``launches`` sums
 its counter over the main-path runs of phases 3, 4, 6, 7, 8, 9, 10, 11 and
 12 (its ranks' counts read in each rank), each read just after its run with
 the counters set to 0 just before (also under ``sharded`` for phase 12); the
-segment sum's launches are also counted by dtype and D (its ``shapes``),
-and its row on the ``kernels`` line shows the most launched shape, f32 D=3
-on the landmark ordering, with the tail's and the refine's layouts under
-``tail`` and ``refine`` (each with the launches of its dtype and D in that
-phase's main-path run).
+segment sum's launches are also counted by dtype and D (its ``shapes``)
+and by the layout its offsets' plan names (its ``layouts``: ``SchurQ
+landmark`` / ``frame``, the tail's and the refine's ``Segments``), and its
+row on the ``kernels`` line shows the most launched shape, f32 D=3 on the
+landmark ordering, with the tail's and the refine's layouts under ``tail``
+and ``refine`` (each with the launches of its layout and D in that phase's
+main-path run) and phase 9's frame orderings under ``schurq_frame`` (the
+launches of its layout, type and D in the two implicit runs).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -520,11 +538,25 @@ PAR_TRACED_OUTER = 5   # outer iterations of the traced scene C window
 PAR_RANK_TIMEOUT = 400  # seconds the two ranks of phase 12 (c) may take
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32 /
-# f64 FLOP/s outside the tensor cores
+# f64 FLOP/s outside the tensor cores, and its L2's size
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+L2_BYTES = 50 * 2**20
 F32 = 4  # bytes
+# the L2's read rate under every bound_ms: the best that
+# ``chip_profile.py --probe`` reached on an H100 80GB HBM3 at 700 W,
+# sweeping buffers of 4-40 MB (read again and again, the way launches timed
+# again and again read inputs that fit the L2), grids and loads in flight:
+# a 40 MB buffer, 264 blocks of 1,024 threads, 8 loads in flight a thread
+# (4-32 MB buffers: 7.03-7.40e12).  NVIDIA publishes no L2 rate; this one
+# is achieved, not a peak, so a kernel could in principle beat a bound
+# made with it
+L2_READ_BYTES = 7.601e12
+# the chain floor's terms, measured in this run by measure_floors(): the
+# latency of one dependent add by item size (ns) and an empty launch's
+# device time (ms)
+FLOORS = {}
 
 
 def log(*a):
@@ -716,8 +748,73 @@ def dense_bytes_ops(n: int, o: int):
 
 
 def bound_ms(nbytes, ops, peak_ops=PEAK_F32):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
+    """The least time of a launch that moves ``nbytes`` and does ``ops``:
+    ``(ms, "bytes" or "operations", basis)``.  Launches timed again and
+    again find up to ``L2_BYTES`` of their inputs in L2, so the bytes are
+    bounded by the L2's read rate and, past ``L2_BYTES``, by device memory:
+    basis ``"L2"`` (everything fits) or ``"L2 + HBM"``."""
+    tb = max(nbytes / L2_READ_BYTES,
+             max(nbytes - L2_BYTES, 0) / PEAK_BYTES) * 1e3
+    to = ops / peak_ops * 1e3
+    basis = "L2" if nbytes <= L2_BYTES else "L2 + HBM"
+    return max(tb, to), ("bytes" if tb >= to else "operations"), basis
+
+
+def chain_floor_ms(longest: int, item: int):
+    """The floor of a segment sum that adds each segment's rows in row
+    order: its longest segment's chain of dependent adds, plus an empty
+    launch, at this run's :data:`FLOORS` (None where this process did not
+    measure them: ``chip_profile.py``'s kernel times)."""
+    if not FLOORS:
+        return None
+    return (longest * FLOORS["t_add_ns"][item] * 1e-6
+            + FLOORS["launch_floor_ms"])
+
+
+def probe_lib():
+    """``csrc/probe.cu``'s library (built with the package's kernels), its
+    functions typed."""
+    import ctypes
+
+    from xmtpu_torch import _build
+
+    lib = _build.load("probe")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.xm_probe_add_chain.argtypes = [I, I, P, P]
+    lib.xm_probe_add_chain.restype = I
+    lib.xm_probe_read.argtypes = [P, ctypes.c_longlong] + [I] * 4 + [P, P]
+    lib.xm_probe_read.restype = I
+    return lib
+
+
+def launched(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def measure_floors(dev) -> dict:
+    """Fills :data:`FLOORS`: the latency of one dependent f32 and f64 add
+    (``probe.cu``'s one-thread chain of n adds, device time at two n) and
+    the device time of an empty launch of one 128-thread block
+    (``segsum.cu``'s floor kernel)."""
+    import torch
+
+    from xmtpu_torch.ops import segsum as ss
+
+    lib, seg = probe_lib(), ss._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(4, dtype=torch.float64, device=dev)
+    n1, n2 = 1 << 16, 1 << 18
+    t_add = {}
+    for item in (4, 8):
+        ms = [device_ms(lambda n=n: launched(lib.xm_probe_add_chain(
+            item, n, out.data_ptr(), stream), "add chain"), 20)
+            for n in (n1, n2)]
+        t_add[item] = (ms[1] - ms[0]) / (n2 - n1) * 1e6
+    floor = device_ms(lambda: launched(seg.xm_segsum_floor(
+        1, 128, 0, stream), "empty launch"), 100)
+    FLOORS.update(t_add_ns=t_add, launch_floor_ms=floor)
+    return FLOORS
 
 
 def assert_close(name, got, want, atol, rtol):
@@ -1000,6 +1097,35 @@ def segsum_bytes_ops(rows: int, S: int, D: int, item: int, idx_words: int):
     return rows * D * item + idx_words * 4 + S * D * item, rows * D
 
 
+# the segment sums' times under the earlier design, one thread an output
+# for every segment (ms a launch, H100 80GB HBM3 at 700 W: scene C's f32
+# D=3 sums by chip_profile.py --kernels, the tail's and the refine's f64
+# layouts by chip_smoke.py), printed beside this run's
+PREV_SEGSUM_MS = {"csr l float32 D=3": 0.0027, "csr f float32 D=3": 0.0026}
+PREV_TAIL_MS = {
+    "BATA dst D=3": 0.0040, "BATA src D=3": 0.0696, "BA image D=6": 0.0641,
+    "BA image D=12": 0.0614, "BA image D=36": 0.1331, "BA track D=3": 0.0041,
+    "BA track D=9": 0.0050, "BA camera D=6": 0.0058, "BA camera D=36": 0.0059,
+    "tri track D=1": 0.0041, "tri track D=16": 0.0087,
+    "refine frame D=6": 0.0253, "refine landmark D=3": 0.0035}
+# the tail's and the refine's Segments layouts by name, with the widths
+# the kernel is held at on each (every f64 width the main path sums)
+TAIL_LAYOUTS = {"BATA dst": (3,), "BATA src": (3,), "BA image": (6, 12, 36),
+                "BA track": (3, 9), "BA camera": (6, 36),
+                "tri track": (1, 16)}
+REFINE_LAYOUTS = {"refine frame": (6,), "refine landmark": (3,)}
+
+
+def launched_layouts(run: dict, layouts: dict, what: str) -> None:
+    """Fails unless the run launched the segment sum on every named
+    layout (``sorted_segment_sum layouts`` keys ``"<name> f64 D=<D>"``)."""
+    seen = {k.rsplit(" ", 2)[0] for k, v in run[
+        "sorted_segment_sum layouts"].items() if v > 0}
+    if not set(layouts) <= seen:
+        raise AssertionError(f"{what}: no segment sum on "
+                             f"{sorted(set(layouts) - seen)}")
+
+
 def hold_segsum(Q, dev, reps: int = 100):
     """Both segment-sum kernels against their plain twin on the card, on the
     operator's real orderings.  Returns one dict per case."""
@@ -1078,7 +1204,9 @@ def hold_segsum(Q, dev, reps: int = 100):
                             src, sid, S), reps),
                         library_ms=device_ms(
                             lambda: out.index_add_(0, sid, src), reps),
-                        bound=bound_ms(nbytes, ops, peak)))
+                        bound=bound_ms(nbytes, ops, peak),
+                        chain_floor=chain_floor_ms(longest, item),
+                        prev_ms=PREV_SEGSUM_MS.get(tag)))
     return cases
 
 
@@ -1121,14 +1249,17 @@ def reset_counts():
     for k in counted_kernels():
         k.launches = 0
     ss.sorted_segment_sum.shapes = {}
+    ss.sorted_segment_sum.layouts = {}
 
 
 def read_counts() -> dict:
-    """Launches by kernel, and the segment sum's by dtype and D."""
+    """Launches by kernel, and the segment sum's by dtype and D and by
+    layout."""
     from xmtpu_torch.ops import segsum as ss
 
     out = {k.__name__: k.launches for k in counted_kernels()}
     out["sorted_segment_sum shapes"] = dict(ss.sorted_segment_sum.shapes)
+    out["sorted_segment_sum layouts"] = dict(ss.sorted_segment_sum.layouts)
     return out
 
 
@@ -1549,9 +1680,11 @@ def run_scene_d(dev, counts):
     xmtpu_torch mapper`` twice (equal tempdata), held against the JAX
     package's counts; ``filter_pairs``' launches and host reads; lifting
     with GT depth; ``xm2_solve`` dense and implicit, held against the JAX
-    package's runs; ``calibrate_view_graph`` on the card.  Returns the
-    scene, the mapper's parsed export and the lifted observations, which
-    phase 11 refines."""
+    package's runs; ``calibrate_view_graph`` on the card.  Then the segment
+    sum on the frame orderings of the implicit runs' operators
+    (:func:`hold_schurq_frames`).  Returns the scene, the mapper's parsed
+    export and the lifted observations, which phase 11 refines, and the
+    frame orderings' cases."""
     import filecmp
     import tempfile
 
@@ -1687,14 +1820,18 @@ def run_scene_d(dev, counts):
     log(f"[smoke] scene D lifting: {time.perf_counter() - t0:.2f} s, "
         f"{len(lifted[0])} observations, {vg.N} frames, {vg.M} tracks")
     R_gt = scD.R.transpose(0, 2, 1)
+    frame_runs = []     # the implicit runs' operators' frame orderings
     for tag, kw, ref in (
             ("dense", XM2_D_ARGS["dense"], XM2_D["dense"]),
             ("implicit", XM2_D_ARGS["implicit"], XM2_D["implicit"]),
             ("implicit default tol", dict(implicit=True), XM2_D_DEFAULT)):
         reset_counts()
-        out, last, ranks, timer, wall = run_xm2_d(xm2, lifted, vg.N, vg.M,
-                                                  dev, **kw)
+        with _SchurQRecorder() as rec:
+            out, last, ranks, timer, wall = run_xm2_d(xm2, lifted, vg.N,
+                                                      vg.M, dev, **kw)
         counts[f"D {tag}"] = read_counts()
+        if rec.built:
+            frame_runs.append((tag, rec.built))
         rot = rotation_error_stats(out.R_real, R_gt, out.indices_all)
         m = scene_d_report(out, scD)
         log(f"[smoke] scene D xm2_solve {tag}: wall {wall:.2f} s, ranks "
@@ -1719,6 +1856,13 @@ def run_scene_d(dev, counts):
     if counts["D implicit"]["sorted_segment_sum"] <= 0:
         raise AssertionError("scene D implicit: sorted_segment_sum never "
                              "launched")
+    if [t for t, _ in frame_runs] != ["implicit", "implicit default tol"]:
+        raise AssertionError(f"scene D: SchurQ built by "
+                             f"{[t for t, _ in frame_runs]}")
+    frame_cases = hold_schurq_frames(frame_runs, counts, dev)
+    for c in frame_cases:
+        log(tail_case_line("scene D implicit", c))
+    del frame_runs
 
     # view-graph calibration on the card
     F, cam0, cam1, pp, f0 = scene_d_calibration_inputs(scD)
@@ -1734,7 +1878,7 @@ def run_scene_d(dev, counts):
     if not (abs(f_cal - f_true) <= 0.01 * f_true
             and abs(f_cal - CALIB_D) <= 1e-6 * CALIB_D):
         raise AssertionError(f"scene D calibration: focal {f_cal}")
-    return scD, exp, lifted
+    return scD, exp, lifted, frame_cases
 
 
 def tail_gt_errors(R, t, sc: SceneD, frames=None) -> dict:
@@ -1773,22 +1917,21 @@ def tail_poses(blob: str):
 
 class _Recorder:
     """Records the layouts of ``Segments`` built in one module during the
-    main path (the first ``keep`` of them), so the kernel can be held on
-    them afterwards."""
+    main path (the first of each layout name), so the kernel can be held on
+    them afterwards: ``layouts[name] = (ids, S)``."""
 
-    def __init__(self, module, keep: int):
-        self.module, self.keep, self.layouts = module, keep, []
+    def __init__(self, module):
+        self.module, self.layouts = module, {}
         self.orig = module.Segments
 
     def __enter__(self):
         rec, orig = self, self.orig
 
         class Recording(orig):
-            def __init__(self, ids, num_segments, device):
-                if len(rec.layouts) < rec.keep:
-                    rec.layouts.append((np.array(ids, dtype=np.int64),
-                                        int(num_segments)))
-                super().__init__(ids, num_segments, device)
+            def __init__(self, ids, num_segments, device, layout="unnamed"):
+                rec.layouts.setdefault(layout, (np.array(ids, dtype=np.int64),
+                                                int(num_segments)))
+                super().__init__(ids, num_segments, device, layout)
 
         self.module.Segments = Recording
         return self
@@ -1797,42 +1940,143 @@ class _Recorder:
         self.module.Segments = self.orig
 
 
+class _Planned:
+    """Sorted segment ids on the card with their planned offsets, as an
+    operator holds them (``SchurQ``'s ``f_f`` / ``bounds_f``), summed as
+    ``Segments`` sums."""
+
+    perm = None
+
+    def __init__(self, ids, offsets):
+        self.ids, self.offsets = ids, offsets
+
+    def sum(self, vals):
+        from xmtpu_torch.ops import segsum as ss
+
+        return ss.sorted_segment_sum(vals, self.ids, len(self.offsets) - 1,
+                                     offsets=self.offsets)
+
+
+class _SchurQRecorder:
+    """Records the frame ordering of every ``SchurQ`` built while it is
+    open: ``built`` holds ``(f_f, bounds_f)``, the sorted ids and planned
+    offsets the operator sums by frame."""
+
+    def __enter__(self):
+        from xmtpu_torch.ops.schurq import SchurQ
+
+        self.cls, self.orig, self.built = SchurQ, SchurQ.__dict__["build"], []
+        build, built = self.orig.__func__, self.built
+
+        def recording(*a, **k):
+            q = build(*a, **k)
+            built.append((q.f_f, q.bounds_f))
+            return q
+
+        SchurQ.build = staticmethod(recording)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.build = self.orig
+
+
 def hold_tail_segsum(layouts, dev, reps: int = 50):
-    """``sorted_segment_sum`` on the tail's real layouts (f64, through
-    ``Segments``): the CPU twin's bits, the same bits on a second launch;
+    """``sorted_segment_sum`` on real layouts through their planned
+    offsets, named by layout: the CPU twin's bits, the same bits on a
+    second launch, one launch a call, counted under the layout's name;
     timed a launch (``launch_ms``) beside ``index_add_`` on the same sorted
-    rows.  ``layouts``: ``(tag, ids, S, D)``."""
+    rows, the byte bound and the chain floor (and, on the log line, the
+    earlier design's time).  ``layouts``: ``(name, ids, S, D)``, f64 rows
+    summed through ``Segments``, or ``(name, ids, S, D, dtype, seg)``, rows
+    of ``dtype`` summed through ``seg`` (a :class:`_Planned`)."""
     import torch
 
     from xmtpu_torch.ops import segsum as ss
 
     gen = np.random.default_rng(1)
     cases = []
-    for tag, ids, S, D in layouts:
-        vals = gen.normal(size=(len(ids), D))
-        seg = ss.Segments(ids, S, dev)
+    for name, ids, S, D, *rest in layouts:
+        dt, seg = rest or (torch.float64, ss.Segments(ids, S, dev, name))
+        sfx = "f64" if dt == torch.float64 else "f32"
+        item = 8 if dt == torch.float64 else 4
+        tag = f"{name} D={D}" if item == 8 else f"{name} {sfx} D={D}"
+        vals = gen.normal(size=(len(ids), D)).astype(
+            np.float64 if item == 8 else np.float32)
         v = torch.as_tensor(vals, device=dev)
+        n0 = ss.sorted_segment_sum.launches
+        key = f"{name} {sfx} D={D}"
+        k0 = ss.sorted_segment_sum.layouts.get(key, 0)
         a, b = seg.sum(v), seg.sum(v)
         torch.cuda.synchronize()
+        calls = (ss.sorted_segment_sum.launches - n0,
+                 ss.sorted_segment_sum.layouts.get(key, 0) - k0)
         want = ss.Segments(ids, S, "cpu").sum(torch.as_tensor(vals))
-        if not (torch.equal(a, b) and torch.equal(a.cpu(), want)):
-            raise AssertionError(f"tail segsum {tag} D={D}: repeatable "
+        if not (torch.equal(a, b) and torch.equal(a.cpu(), want)
+                and calls == (2, 2)):
+            raise AssertionError(f"segsum {tag}: repeatable "
                                  f"{torch.equal(a, b)}, the CPU twin's bits "
-                                 f"{torch.equal(a.cpu(), want)}")
+                                 f"{torch.equal(a.cpu(), want)}, launches "
+                                 f"(all, {key}) of two calls {calls}")
         rows = v if seg.perm is None else v[seg.perm].contiguous()
-        out = torch.zeros((S, D), dtype=torch.float64, device=dev)
-        L = np.bincount(ids, minlength=S)
-        nbytes, ops = segsum_bytes_ops(len(ids), S, D, 8, S + 1)
+        out = torch.zeros((S, D), dtype=dt, device=dev)
+        plan = seg.offsets.csr_plan
+        nbytes, ops = segsum_bytes_ops(len(ids), S, D, item, S + 1)
         cases.append(dict(
-            tag=f"{tag} D={D}", E=len(ids), S=S, D=D, longest=int(L.max()),
+            tag=tag, layout=name, key=key, E=len(ids), S=S, D=D,
+            dtype=sfx, longest=plan.longest, n_long=plan.n_long,
             ms=launch_ms(lambda: ss.sorted_segment_sum(
                 rows, seg.ids, S, offsets=seg.offsets), reps),
             plain_ms=cuda_ms(lambda: ss.sorted_segment_sum_plain(
                 rows, seg.ids, S), reps),
             library_ms=launch_ms(lambda: out.index_add_(0, seg.ids, rows),
                                  reps),
-            bound=bound_ms(nbytes, ops, PEAK_F64)))
+            bound=bound_ms(nbytes, ops, PEAK_F64 if item == 8 else PEAK_F32),
+            chain_floor=chain_floor_ms(plan.longest, item),
+            prev_ms=PREV_TAIL_MS.get(tag)))
     return cases
+
+
+def tail_case_line(where: str, c: dict) -> str:
+    return (f"[smoke] {where} segsum {c['tag']} (E={c['E']}, S={c['S']}, "
+            f"longest {c['longest']}, {c['n_long']} long): {c['ms']:.4f} ms "
+            f"plain {c['plain_ms']:.4f} ms index_add_ "
+            f"{c['library_ms']:.4f} ms bound {c['bound'][0]:.5f} ms "
+            f"({c['bound'][1]}, {c['bound'][2]}) chain floor "
+            f"{c['chain_floor']:.5f} ms"
+            + (f"; earlier design {c['prev_ms']} ms" if c["prev_ms"] else "")
+            + "; the CPU twin's bits, twice, one launch a call")
+
+
+def hold_schurq_frames(runs, counts, dev) -> list:
+    """``sorted_segment_sum`` on each distinct frame ordering that phase 9's
+    implicit runs built (``runs``: ``(tag, built)`` of a
+    :class:`_SchurQRecorder`), through the operator's own planned offsets,
+    at every type and width the run that built it summed under ``SchurQ
+    frame``, as :func:`hold_tail_segsum` holds the tail's."""
+    import torch
+
+    frames = {}
+    for tag, built in runs:
+        keys = {k for k, v in counts[f"D {tag}"][
+            "sorted_segment_sum layouts"].items()
+            if k.startswith("SchurQ frame ") and v > 0}
+        for f_f, off in built:
+            ent = frames.setdefault(off.cpu().numpy().tobytes(),
+                                    [f_f, off, set()])
+            ent[2] |= keys
+    layouts = []
+    for f_f, off, keys in frames.values():
+        if off.csr_plan.n_long == 0:
+            raise AssertionError("scene D implicit: the frame ordering has "
+                                 "no long segment")
+        seg = _Planned(f_f, off)
+        for key in sorted(keys, key=lambda k: (k.split()[-2],
+                                               int(k.split("=")[-1]))):
+            sfx, D = key.split()[-2], int(key.split("=")[-1])
+            layouts.append(("SchurQ frame", f_f.cpu().numpy(), len(off) - 1,
+                            D, torch.float64 if sfx == "f64"
+                            else torch.float32, seg))
+    return hold_tail_segsum(layouts, dev, reps=20)
 
 
 def watch_scene_c(Q_C, scC, res_C, dev):
@@ -1940,8 +2184,8 @@ def run_scene_d_tail(dev, counts) -> list:
         text = io.StringIO()
         reset_counts()
         try:
-            with _Recorder(gp, 2) as r_gp, _Recorder(ba, 3) as r_ba, \
-                    _Recorder(tri, 1) as r_tri, \
+            with _Recorder(gp) as r_gp, _Recorder(ba) as r_ba, \
+                    _Recorder(tri) as r_tri, \
                     contextlib.redirect_stdout(text):
                 t0 = time.perf_counter()
                 rc = cli(["mapper", "--database_path", db, "--output_path",
@@ -1989,6 +2233,7 @@ def run_scene_d_tail(dev, counts) -> list:
     if not want_shapes <= {k for k, v in shapes.items() if v > 0}:
         raise AssertionError(f"scene D tail: a segment-sum shape never "
                              f"launched: {shapes}")
+    launched_layouts(counts["D tail"], TAIL_LAYOUTS, "scene D tail")
 
     # the JAX package's focal and poses, and ground truth
     focal = float(res.focals[0])
@@ -2043,23 +2288,15 @@ def run_scene_d_tail(dev, counts) -> list:
                                  f"{reads}")
 
     # the kernel on the tail's real layouts
-    (dst, n_var), (src, _) = r_gp.layouts
-    (img, N), (trk, M), (cams, C) = r_ba.layouts
-    (ttrk, _), = r_tri.layouts
+    seen = r_gp.layouts | r_ba.layouts | r_tri.layouts
+    img, N = seen["BA image"]
+    cams, C = seen["BA camera"]
     if not len(cams) == N < len(img):
         raise AssertionError("scene D tail: a camera sum ran over the edges")
-    layouts = ([("BATA dst", dst, n_var, 3), ("BATA src", src, n_var, 3)]
-               + [("BA image", img, N, d) for d in (6, 12, 36)]
-               + [("BA track", trk, M, d) for d in (3, 9)]
-               + [("BA camera", cams, C, d) for d in (6, 36)]
-               + [("tri track", ttrk, M, d) for d in (1, 16)])
-    cases = hold_tail_segsum(layouts, dev)
+    cases = hold_tail_segsum([(name, *seen[name], D) for name, Ds in
+                              TAIL_LAYOUTS.items() for D in Ds], dev)
     for c in cases:
-        log(f"[smoke] tail segsum {c['tag']} (E={c['E']}, S={c['S']}, "
-            f"longest {c['longest']}): {c['ms']:.4f} ms plain "
-            f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
-            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); the CPU twin's "
-            f"bits, twice")
+        log(tail_case_line("tail", c))
     return cases
 
 
@@ -2246,7 +2483,7 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
     args = (out.edges, obs2d, out.R_real, out.t_est, out.p_est)
     reset_counts()
     refine.refine_bundle.host_reads = 0
-    with _Recorder(refine, 2) as rec:
+    with _Recorder(refine) as rec:
         t0 = time.perf_counter()
         res = refine.refine_bundle(*args, device=dev)
         torch.cuda.synchronize()
@@ -2266,6 +2503,7 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
                              f"{res.iterations} LM steps")
     if not {"f64 D=6", "f64 D=3"} <= {k for k, v in shapes.items() if v > 0}:
         raise AssertionError(f"scene D refine: sums by {shapes}")
+    launched_layouts(counts["D refine"], REFINE_LAYOUTS, "scene D refine")
 
     # the JAX package's run, and ground truth
     R_ref, c_ref = tail_poses(REFINE_D_POSES)
@@ -2305,15 +2543,10 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
         f"xm2_solve {wall:.2f}, refine_bundle {t_ref:.2f}")
 
     # the kernel on the refine's layouts: by frame (D = 6), by landmark
-    (frm, nf), (lmk, nl) = rec.layouts
-    cases = hold_tail_segsum([("refine frame", frm, nf, 6),
-                              ("refine landmark", lmk, nl, 3)], dev)
+    cases = hold_tail_segsum([(name, *rec.layouts[name], D) for name, Ds
+                              in REFINE_LAYOUTS.items() for D in Ds], dev)
     for c in cases:
-        log(f"[smoke] refine segsum {c['tag']} (E={c['E']}, S={c['S']}, "
-            f"longest {c['longest']}): {c['ms']:.4f} ms plain "
-            f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
-            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); the CPU twin's "
-            f"bits, twice")
+        log(tail_case_line("refine", c))
     hold_depth_net(dev)
 
     # a second call on the same inputs gives the same bits
@@ -2776,6 +3009,10 @@ def run(dev, card: str) -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    fl = measure_floors(dev)
+    log(f"[smoke] floors: dependent add {fl['t_add_ns'][4]:.3f} ns (f32), "
+        f"{fl['t_add_ns'][8]:.3f} ns (f64); empty launch "
+        f"{fl['launch_floor_ms']:.5f} ms")
 
     # ---- 2. kernels vs plain ---------------------------------------------
     lam = 0.0
@@ -2930,7 +3167,10 @@ def run(dev, card: str) -> int:
         log(f"[smoke] segsum {c['tag']}: err {c['max_abs_err']:.2e} "
             f"(rel {c['max_rel_err']:.1e}) {c['ms']:.4f} ms plain "
             f"{c['plain_ms']:.4f} ms index_add_ {c['library_ms']:.4f} ms "
-            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]})")
+            f"bound {c['bound'][0]:.5f} ms ({c['bound'][1]}, "
+            f"{c['bound'][2]}) chain floor {c['chain_floor']:.5f} ms"
+            + (f"; earlier design {c['prev_ms']:.4f} ms" if c["prev_ms"]
+               else ""))
     # tcg_step at the implicit size: the split variant on the f32 cast of
     # Q_C, the f64 loop on Q_C itself
     nC = scC.N
@@ -3043,7 +3283,7 @@ def run(dev, card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    scD, exp_D, lifted_D = run_scene_d(dev, counts)
+    scD, exp_D, lifted_D, frame_cases = run_scene_d(dev, counts)
     log(f"[smoke] scene D: phase wall {time.perf_counter() - t0:.1f} s, "
         f"device memory peak "
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
@@ -3092,10 +3332,11 @@ def run(dev, card: str) -> int:
     def total(name):
         return sum(run[name] for run in counts.values())
 
-    shapes = {}
+    shapes, layouts = {}, {}
     for run in counts.values():
-        for k, v in run["sorted_segment_sum shapes"].items():
-            shapes[k] = shapes.get(k, 0) + v
+        for tot, key in ((shapes, "shapes"), (layouts, "layouts")):
+            for k, v in run[f"sorted_segment_sum {key}"].items():
+                tot[k] = tot.get(k, 0) + v
 
     def seg_row(kind, name, replaces, D):
         mine = [c for c in seg_cases if c["kernel"] == kind]
@@ -3108,6 +3349,7 @@ def run(dev, card: str) -> int:
             max_rel_err=max(c["max_rel_err"] for c in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound"][0], bound_by=rep["bound"][1],
+            bound_basis=rep["bound"][2], chain_floor_ms=rep["chain_floor"],
             library_ms=rep["library_ms"],
             shape=f"scene C landmark ordering, E={rep_E}, S={n_land}, D={D} "
                   f"f32; all {len(mine)} cases on the [smoke] segsum lines")
@@ -3117,18 +3359,28 @@ def run(dev, card: str) -> int:
     csr_row = seg_row("csr", "sorted_segment_sum",
                       "xmtpu/ops/pallas_segsum.py:46", 3)
     csr_row["shapes"] = shapes
+    csr_row["layouts"] = layouts
     # phase 12's runs (in the totals too): per run, and per slot on (b)
     sharded = {k: v for k, v in counts.items() if k.startswith("P ")}
     csr_row["sharded"] = {k: v["sorted_segment_sum"]
                           for k, v in sharded.items()} | {
         "slot_sums": slot_stats["slot_sums"]}
-    for key, cs in (("tail", tail_cases), ("refine", refine_cases)):
-        csr_row[key] = [{k: c[k] for k in ("tag", "E", "S", "D", "longest",
-                                           "ms", "plain_ms", "library_ms")}
+    csr_row["floors"] = FLOORS
+    for key, cs, runs in (
+            ("tail", tail_cases, ("D tail",)),
+            ("refine", refine_cases, ("D refine",)),
+            ("schurq_frame", frame_cases,
+             ("D implicit", "D implicit default tol"))):
+        csr_row[key] = [{k: c[k] for k in ("tag", "E", "S", "D", "dtype",
+                                           "longest", "n_long", "ms",
+                                           "plain_ms", "library_ms")}
                         | {"bound_ms": c["bound"][0],
-                           "launches": counts[f"D {key}"][
-                               "sorted_segment_sum shapes"].get(
-                                   f"f64 D={c['D']}", 0)}
+                           "bound_by": c["bound"][1],
+                           "bound_basis": c["bound"][2],
+                           "chain_floor_ms": c["chain_floor"],
+                           "launches": sum(counts[r][
+                               "sorted_segment_sum layouts"].get(c["key"], 0)
+                               for r in runs)}
                         for c in cs]
     kernels = [
         dict(name="tcg_step", route="cuda",
@@ -3139,6 +3391,7 @@ def run(dev, card: str) -> int:
              ms=c["step_ms"], enqueue_ms=c["step_enqueue_ms"],
              plain_ms=c["step_plain_ms"],
              bound_ms=c["step_bound"][0], bound_by=c["step_bound"][1],
+             bound_basis=c["step_bound"][2],
              library_ms=None, solve_ms=step_in_C[0],
              sharded={k: v["tcg_step"] for k, v in sharded.items()},
              geometry=c["geometry"],
@@ -3156,6 +3409,7 @@ def run(dev, card: str) -> int:
              ms=a["dense_ms"], enqueue_ms=a["dense_enqueue_ms"],
              plain_ms=a["dense_plain_ms"],
              bound_ms=a["dense_bound"][0], bound_by=a["dense_bound"][1],
+             bound_basis=a["dense_bound"][2],
              library_ms=a["cw_library_ms"], geometry=a["geometry"],
              shape=f"n={nA} o=3 (scene A); library_ms: torch.matmul of the "
                    f"product alone on the same W; n=512: "

@@ -585,6 +585,83 @@ def test_segsum_tail_shapes_on_card(layout, D, cuda_device):
     assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
 
 
+def _long_lengths(case, seed):
+    """Segment lengths of the long-segment path's card cases: ``ring`` — one
+    segment of 20,000 rows (longer than all the ring's tiles together at
+    every width) among 500 short ones; ``only long`` — 40 segments of 100
+    to 3,000 rows; ``mixed`` — 3,000 segments of 0 to 40 rows with 30 of
+    1,000 to 2,600 (BATA's cameras among its points); ``single`` — one
+    segment holding all 50,000 rows; ``empty`` — long segments between runs
+    of empty ones (the first and the last segment empty)."""
+    rng = np.random.default_rng(seed)
+    if case == "ring":
+        L = rng.integers(0, 30, 501)
+        L[250] = 20_000
+    elif case == "only long":
+        L = rng.integers(100, 3001, 40)
+    elif case == "mixed":
+        L = rng.integers(0, 41, 3030)
+        L[rng.choice(3030, 30, replace=False)] = rng.integers(1000, 2601, 30)
+    elif case == "single":
+        L = np.array([50_000])
+    else:
+        assert case == "empty"
+        L = np.zeros(60, np.int64)
+        L[5:55:7] = rng.integers(ss.CSR_LONG + 1, 900, 8)
+    return L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("D", [1, 3, 6, 36, ss.LONG_MAX_D + 2])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["ring", "only long", "mixed", "single",
+                                  "empty"])
+def test_segsum_long_path_on_card(case, dtype, D, unaligned, cuda_device):
+    """The long-segment path through ``Segments``' planned offsets: a
+    segment longer than the ring, only long segments, a mix, one segment
+    holding every row, empty segments around long ones, and values that do
+    not start on a 16-byte boundary (a view one row into its storage): the
+    CPU twin's bits, the same bits on a second launch, one launch a call,
+    counted under the plan's layout (rows wider than ``LONG_MAX_D`` take
+    the one-thread-an-output walk on the same offsets)."""
+    L = _long_lengths(case, seed=D)
+    ids = np.repeat(np.arange(len(L)), L)
+    rng = np.random.default_rng(D)
+    full = rng.normal(size=(len(ids) + 1, D)).astype(dtype)
+    vals = full[1:] if unaligned else full[:-1]
+    ref = ss.Segments(ids, len(L), "cpu").sum(torch.tensor(vals))
+    seg = ss.Segments(ids, len(L), cuda_device, case)
+    assert seg.perm is None and seg.offsets.csr_plan.n_long >= 1
+    v = torch.tensor(full, device=cuda_device)
+    v = v[1:] if unaligned else v[:-1]
+    n0 = ss.sorted_segment_sum.launches
+    key = f"{case} {'f32' if dtype == np.float32 else 'f64'} D={D}"
+    k0 = ss.sorted_segment_sum.layouts.get(key, 0)
+    a = seg.sum(v)
+    assert ss.sorted_segment_sum.launches == n0 + 1
+    b = seg.sum(v)
+    torch.cuda.synchronize()
+    assert ss.sorted_segment_sum.launches == n0 + 2
+    assert ss.sorted_segment_sum.layouts[key] == k0 + 2
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+    assert int((a[torch.as_tensor(L, device=cuda_device) == 0] != 0).sum()
+               ) == 0
+
+
+@pytest.mark.cuda
+def test_segsum_long_path_rejects_a_plan_of_another_layout(cuda_device):
+    """Offsets whose plan was made for other rows or segments raise instead
+    of launching on a layout they do not describe."""
+    seg = ss.Segments(np.repeat(np.arange(3), [10, 100, 5]), 3, cuda_device,
+                      "x")
+    v = torch.ones((115, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="plan"):
+        ss.sorted_segment_sum(v[:114], seg.ids[:114], 3, offsets=seg.offsets)
+    with pytest.raises(ValueError, match="plan"):
+        ss.sorted_segment_sum(v, seg.ids, 2, offsets=seg.offsets)
+
+
 def _layout_ids(layout, E, S, sb, seed):
     """Sorted segment ids for the blocked-layout cases:
     ``random`` — uniform over [0, S) (sparse when E < S: empty blocks);
@@ -873,3 +950,16 @@ def test_kernels_launch_on_the_tensors_card(cuda_device):
     assert ft.tcg_step.launches > n0
     args, minv = _inputs(n=200, dense=False)
     _assert_loop_close(got, ft.inner_tcg_fused(*args, CFG, minv))
+    # the long-segment path on the first card, then on the second with the
+    # first current: its ring takes more than 48 KB of shared memory a
+    # block, which each card must allow for itself
+    L = _long_lengths("mixed", seed=3)
+    lids = np.repeat(np.arange(len(L)), L)
+    lv = torch.tensor(np.random.default_rng(3).normal(size=(len(lids), 12)))
+    want = ss.Segments(lids, len(L), "cpu").sum(lv)
+    for dev in (torch.device("cuda", 0), dev1):
+        seg = ss.Segments(lids, len(L), dev, "two cards")
+        with torch.cuda.device(0):
+            got = seg.sum(lv.to(dev))
+            torch.cuda.synchronize(dev)
+        assert got.device == dev and torch.equal(got.cpu(), want)

@@ -12,7 +12,9 @@ V3F V3F^T``.  Per apply: O(E o) edge gathers and sorted segment sums plus
 one (n-1)^2 GEMM.
 
 Edge arrays are kept in two sorted orderings (by landmark, by frame) with
-their CSR boundaries ``bounds_l`` / ``bounds_f``.  Every segment sum of an
+their CSR boundaries ``bounds_l`` / ``bounds_f`` (made by
+``segsum.planned_offsets`` in :meth:`SchurQ.build`, so they carry the
+kernel's plan of their long segments).  Every segment sum of an
 apply and of the build is sorted and goes through
 ``ops.segsum.sorted_segment_sum``, routed by the device of its tensors: on
 the card the hand-written CUDA kernel (every dtype, reading the stored
@@ -45,7 +47,8 @@ import torch
 
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
-from xmtpu_torch.ops.segsum import max_band, sorted_segment_sum
+from xmtpu_torch.ops.segsum import (max_band, planned_offsets,
+                                    sorted_segment_sum)
 
 # above this (N * M * 8 bytes) the build switches from one (N, M) V3F slab
 # to landmark-chunked Gram accumulation (the reference's ~4 GB budget)
@@ -212,7 +215,8 @@ class SchurQ(QOperator):
         i64 = torch.int64
         args = (t(w), t(x), t(f[ord_l], i64), t(l[ord_l], i64), t(ord_l, i64),
                 t(f[ord_f], i64), t(l[ord_f], i64), t(ord_f, i64),
-                t(bounds_l), t(bounds_f))
+                planned_offsets(bounds_l, dev, "SchurQ landmark"),
+                planned_offsets(bounds_f, dev, "SchurQ frame"))
         q, resid_ratio = _build_schurq(*args, N, M, vt_gram=vt_gram,
                                        vt_build=vt_build)
         if vt_build == "ns" and resid_ratio > 2e3:

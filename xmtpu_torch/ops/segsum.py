@@ -2,16 +2,22 @@
 
 Counterpart of ``xmtpu/ops/pallas_segsum.py``.  The implicit operator
 (``ops/schurq.py``) reduces per-edge arrays into per-landmark and per-frame
-sums over edges kept sorted by segment.  Two kernels in
-``xmtpu_torch/csrc/segsum.cu``:
+sums over edges kept sorted by segment; the mapper's tail stages and the LM
+refinement sum per-observation rows by image, track or frame
+(:class:`Segments`).  Two kernels in ``xmtpu_torch/csrc/segsum.cu``:
 
 * ``sorted_segment_sum`` replaces ``pallas_segsum._kernel``: a segmented
-  reduction over CSR offsets.  Each output element's thread adds its
-  segment's rows in row order (no float atomics, the bits of the CPU twin,
-  the same bits every run); :func:`csr_threads` sizes the blocks so that
-  every SM gets some, and on narrow rows of short segments
-  (:func:`csr_batch`) a thread loads ``CSR_BATCH`` rows before it adds
-  any.
+  reduction over CSR offsets, each segment's rows added in row order from
+  zero (no float atomics, the bits of the CPU twin, the same bits every
+  run).  Short segments: each output element's thread walks its segment's
+  rows; :func:`csr_threads` sizes the blocks so that every SM gets some,
+  and on narrow rows of short segments (:func:`csr_batch`) a thread loads
+  ``CSR_BATCH`` rows before it adds any.  Long segments (more than
+  ``CSR_LONG`` rows, listed by the offsets' host plan, :class:`CsrPlan`):
+  a thread block each streams the segment's contiguous rows through a ring
+  of ``LONG_STAGES`` shared-memory stages (of :func:`long_stage_bytes`,
+  tiles of :func:`long_tile_rows` rows) while one thread a column adds them
+  in row order; a layout holding both kinds is still one launch.
 * ``sorted_segment_sum_blocked`` replaces ``pallas_segsum._kernel_blocked``:
   the same sum on the scheduled layout of :func:`plan_blocks` /
   :func:`schedule_edges`, in one pass: each thread block finds its tile of
@@ -19,11 +25,17 @@ sums over edges kept sorted by segment.  Two kernels in
   order.
 
 The plain twin of both is ``torch.zeros(S, D).index_add_(0, ids, vals)``.
-:class:`Segments` sums rows by ids that need not be sorted (the scatters of
-the mapper's tail stages) through ``sorted_segment_sum``, over one stable
-permutation built once per solve.
+The host plan rides on the offsets tensor that :func:`planned_offsets`
+makes from host integers (``Segments``, ``SchurQ.build``), as its
+``csr_plan`` attribute: only that tensor object carries it, so offsets
+computed on the card, moved, cut or padded never carry a stale plan, and
+take the short-segment walk alone.  :class:`Segments` sums rows by ids that
+need not be sorted (the scatters of the mapper's tail stages) through
+``sorted_segment_sum``, over one stable permutation built once per solve.
 Wrapper rule (as in ``ops/fused_tcg.py``): CPU tensors take the twin; CUDA
-tensors launch the kernel (counted in the wrapper's ``launches``) or raise.
+tensors launch the kernel (counted in the wrapper's ``launches``, and by
+dtype and width in ``shapes``, by the plan's layout name in ``layouts``)
+or raise.
 
 The host helpers ``max_band``, ``plan_blocks``, ``schedule_edges``, ``CHUNK``
 and ``SEG_BLOCK`` are copies of the reference's, so both packages schedule
@@ -34,6 +46,7 @@ signatures so callers port unchanged.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +66,27 @@ CSR_MIN_BLOCKS = 264
 CSR_BATCH = 16
 CSR_NARROW_D = 3
 CSR_SHORT = 16
+
+# the long-segment path (see CsrPlan): segments of more than CSR_LONG rows
+# get a block of LONG_THREADS threads each, one adder a column (rows of at
+# most LONG_MAX_D values), streaming their rows through a ring of
+# LONG_STAGES stages (long_stage_bytes; csrc/segsum.cu's LONG_THREADS,
+# LONG_STAGES and LONG_BATCH).  CSR_LONG was measured on the H100
+# (PERF.md): at 64 the triangulation's track sums (longest 65 rows) took a
+# few long blocks, whose ring cut the blocks an SM holds, and slowed from
+# 0.0078 to 0.0136 ms; at 128 to 512 the tail's layouts take the same time
+CSR_LONG = 128
+LONG_THREADS = 128
+LONG_MAX_D = LONG_THREADS
+LONG_STAGES = 4
+LONG_BATCH = 8      # rows an adder loads before it adds them (add_rows' U)
+# bytes a ring stage holds for rows of at most LONG_WIDE_ROW bytes, and for
+# wider rows, which need more bytes in flight a block (measured on the
+# H100, PERF.md: 8 smaller stages were slower at every width)
+LONG_STAGE_BYTES = 24576
+LONG_WIDE_STAGE_BYTES = 32768
+LONG_WIDE_ROW = 64
+
 
 def max_band(seg_ids: np.ndarray, chunk: int = CHUNK) -> int:
     """Largest number of distinct segments spanned by any length-``chunk``
@@ -133,6 +167,63 @@ def segment_offsets(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(ids, keys).to(torch.int32)
 
 
+class CsrPlan(NamedTuple):
+    """Host plan of one CSR layout, built once from its host offsets (no
+    device read): the ``n_long`` segments of more than ``long_rows`` rows as
+    ``longs (n_long, 3)`` int32 rows (segment, first row, end row) on the
+    device, longest first, so the longest chains start first; ``n_short``
+    segments of at most ``long_rows`` rows (the empty ones included);
+    ``rows`` E and ``segments`` S of the layout, checked at every call;
+    ``layout`` names it in the wrapper's ``layouts`` count."""
+
+    layout: str
+    rows: int
+    segments: int
+    long_rows: int
+    longs: torch.Tensor
+    n_long: int
+    n_short: int
+    longest: int
+
+
+def csr_plan(offsets, device, layout: str = "unnamed") -> CsrPlan:
+    """The :class:`CsrPlan` of the host CSR ``offsets`` (S+1,), its long
+    segments those of more than ``CSR_LONG`` rows."""
+    off = np.asarray(offsets, dtype=np.int64)
+    L = np.diff(off)
+    seg = np.flatnonzero(L > CSR_LONG)
+    seg = seg[np.argsort(-L[seg], kind="stable")]
+    longs = np.stack([seg, off[seg], off[seg + 1]], axis=1).astype(np.int32)
+    return CsrPlan(layout, int(off[-1]), len(L), CSR_LONG,
+                   torch.as_tensor(longs, device=device), len(seg),
+                   len(L) - len(seg), int(L.max(initial=0)))
+
+
+def planned_offsets(offsets, device, layout: str = "unnamed") -> torch.Tensor:
+    """The host CSR ``offsets`` (S+1,) as an int32 tensor on ``device``
+    carrying their :class:`CsrPlan` as ``csr_plan``."""
+    t = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
+                        device=device)
+    t.csr_plan = csr_plan(offsets, device, layout)
+    return t
+
+
+def long_stage_bytes(D: int, itemsize: int) -> int:
+    """Bytes of one ring stage of the long-segment launch for rows of ``D``
+    values of ``itemsize`` bytes."""
+    return (LONG_WIDE_STAGE_BYTES if D * itemsize > LONG_WIDE_ROW
+            else LONG_STAGE_BYTES)
+
+
+def long_tile_rows(D: int, itemsize: int, stage_bytes: int) -> int:
+    """Rows of one tile of a long segment: as many rows of ``D`` values of
+    ``itemsize`` bytes as one ring stage of ``stage_bytes`` holds, a whole
+    number of the adders' batches of ``LONG_BATCH`` rows where that is at
+    least one."""
+    rows = max(1, stage_bytes // (D * itemsize))
+    return rows - rows % LONG_BATCH if rows >= LONG_BATCH else rows
+
+
 def csr_threads(S: int, D: int) -> int:
     """Threads of a ``sorted_segment_sum`` block at ``S * D`` outputs (one
     thread each): the largest of ``CSR_THREADS`` that still makes
@@ -180,6 +271,10 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 3 + [_I] * 4 + [_P]
             fn.restype = _I
+        for name in ("xm_segsum_long_f32", "xm_segsum_long_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+            fn.restype = _I
         lib.xm_segsum_floor.argtypes = [_I] * 3 + [_P]
         lib.xm_segsum_floor.restype = _I
         for name in ("xm_segsum_blocked_f32", "xm_segsum_blocked_f64"):
@@ -206,11 +301,15 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
     """Segment sum over sorted ``seg_ids``: ``(S, D)`` from ``vals (E, D)``.
 
     ``offsets``: the ``(S+1,)`` int32 CSR offsets of ``seg_ids`` (computed
-    here when absent); the CUDA kernel reads them instead of the ids, one
-    thread an output, :func:`csr_threads` a block, :func:`csr_batch` rows
-    in flight a thread.  ``band`` is the reference kernel's bound
-    (:func:`max_band`); neither version needs it.  Each launch is counted
-    in ``launches`` and, by ``"f32 D=3"``-style keys, in ``shapes``.
+    here when absent); the CUDA kernel reads them instead of the ids.  When
+    they carry a host plan (:func:`planned_offsets`) with long segments and
+    the rows are at most ``LONG_MAX_D`` wide, the launch gives each long
+    segment a block of its own; otherwise one thread an output,
+    :func:`csr_threads` a block, :func:`csr_batch` rows in flight a thread.
+    ``band`` is the reference kernel's bound (:func:`max_band`); neither
+    version needs it.  Each launch is counted in ``launches``, by
+    ``"f32 D=3"``-style keys in ``shapes`` and by ``"<layout> f32 D=3"``
+    keys in ``layouts`` (``unplanned`` without a plan).
     """
     if _on_cpu(vals, seg_ids):
         return sorted_segment_sum_plain(vals, seg_ids, num_segments)
@@ -221,24 +320,45 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
     E, D = vals.shape
     if offsets is None:
         offsets = segment_offsets(seg_ids, num_segments)
+    plan = getattr(offsets, "csr_plan", None)
+    if plan is not None and (plan.rows, plan.segments) != (E, num_segments):
+        raise ValueError(f"sorted_segment_sum: the offsets' plan is for "
+                         f"{plan.rows} rows in {plan.segments} segments, "
+                         f"got {E} in {num_segments}")
     out = torch.empty((num_segments, D), dtype=vals.dtype, device=dev)
     ptrs = [_check("vals", vals, (E, D), dev, vals.dtype),
             _check("offsets", offsets, (num_segments + 1,), dev, torch.int32),
             _check("out", out, (num_segments, D), dev, vals.dtype)]
+    batch = csr_batch(E, num_segments, D)
     with torch.cuda.device(dev):    # ctypes launches on the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_lib(), f"xm_segsum_{sfx}")(
-            *ptrs, num_segments, D, csr_threads(num_segments, D),
-            csr_batch(E, num_segments, D), stream)
+        if plan is not None and plan.n_long and D <= LONG_MAX_D:
+            longs = _check("plan", plan.longs, (plan.n_long, 3), dev,
+                           torch.int32)
+            stage = long_stage_bytes(D, vals.element_size())
+            rc = getattr(_lib(), f"xm_segsum_long_{sfx}")(
+                ptrs[0], ptrs[1], longs, ptrs[2], num_segments, D,
+                plan.n_long, plan.n_short, plan.long_rows,
+                long_tile_rows(D, vals.element_size(), stage), stage, batch,
+                stream)
+        else:
+            rc = getattr(_lib(), f"xm_segsum_{sfx}")(
+                *ptrs, num_segments, D, csr_threads(num_segments, D), batch,
+                stream)
     _raise_on(rc, "sorted_segment_sum")
     sorted_segment_sum.launches += 1
-    key = f"{sfx} D={D}"
-    sorted_segment_sum.shapes[key] = sorted_segment_sum.shapes.get(key, 0) + 1
+    for counter, key in (
+            (sorted_segment_sum.shapes, f"{sfx} D={D}"),
+            (sorted_segment_sum.layouts,
+             f"{plan.layout if plan is not None else 'unplanned'} {sfx} "
+             f"D={D}")):
+        counter[key] = counter.get(key, 0) + 1
     return out
 
 
 sorted_segment_sum.launches = 0
 sorted_segment_sum.shapes = {}
+sorted_segment_sum.layouts = {}
 
 
 def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
@@ -291,13 +411,15 @@ class Segments:
 
     Built once per solve on the host: one stable ``np.argsort`` of ``ids``
     (skipped when they are already sorted), the sorted ids and their CSR
-    offsets, all on ``device``.  :meth:`sum` gathers the rows through that
-    permutation and sums each segment in the callers' edge order, so on the
-    card the bits are the CPU twin's, the same on every run.  Rows of any
-    trailing shape are summed as flat rows of width ``D``.
+    offsets with their host plan (:func:`planned_offsets`, named
+    ``layout``), all on ``device``.  :meth:`sum` gathers the rows through
+    that permutation and sums each segment in the callers' edge order, so
+    on the card the bits are the CPU twin's, the same on every run.  Rows
+    of any trailing shape are summed as flat rows of width ``D``.
     """
 
-    def __init__(self, ids, num_segments: int, device):
+    def __init__(self, ids, num_segments: int, device,
+                 layout: str = "unnamed"):
         ids = np.asarray(ids, dtype=np.int64)
         perm = np.argsort(ids, kind="stable")
         dev = torch.device(device)
@@ -306,9 +428,9 @@ class Segments:
                      else torch.as_tensor(perm, device=dev))
         ids_s = ids[perm]
         self.ids = torch.as_tensor(ids_s, device=dev)
-        self.offsets = torch.as_tensor(
-            np.searchsorted(ids_s, np.arange(self.num_segments + 1)),
-            dtype=torch.int32, device=dev)
+        self.offsets = planned_offsets(
+            np.searchsorted(ids_s, np.arange(self.num_segments + 1)), dev,
+            layout)
 
     def sum(self, vals: torch.Tensor) -> torch.Tensor:
         """``(S,) + vals.shape[1:]`` segment sums of ``vals (E, ...)``."""

@@ -373,8 +373,9 @@ def bundle_adjustment(obs_image, obs_xy, obs_track, R, t, xyz,
     order = np.argsort(obs_image[keep], kind="stable")
     i_np = obs_image[keep][order]
     j_np = obs_track[keep][order]
-    sums = _EdgeSums(Segments(i_np, N, dev), Segments(j_np, M, dev),
-                     Segments(cam_of, C, dev))
+    sums = _EdgeSums(Segments(i_np, N, dev, "BA image"),
+                     Segments(j_np, M, dev, "BA track"),
+                     Segments(cam_of, C, dev, "BA camera"))
 
     def idx(a):
         return torch.as_tensor(a, dtype=torch.int64, device=dev)

@@ -85,8 +85,8 @@ def _solve_bata(src, dst, d, w_fix, n_var, u0, delta, outer_iters, cg_iters,
     ``(u, s, rn, cost)`` as tensors; nothing is read back to the host.
     """
     dev = d.device
-    by_dst = Segments(dst, n_var, dev)
-    by_src = Segments(src, n_var, dev)
+    by_dst = Segments(dst, n_var, dev, "BATA dst")
+    by_src = Segments(src, n_var, dev, "BATA src")
     src = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
     dst = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
 

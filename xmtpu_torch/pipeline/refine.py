@@ -130,7 +130,8 @@ class _Problem(NamedTuple):
                    torch.as_tensor(f, device=device),
                    torch.as_tensor(l, device=device),
                    torch.as_tensor(unknowns, device=device),
-                   Segments(f, N, device), Segments(l, M, device), cam_mask)
+                   Segments(f, N, device, "refine frame"),
+                   Segments(l, M, device, "refine landmark"), cam_mask)
 
     def split(self, v):
         """Views of ``v``: the frames' (N, 6) rows and the points' (M, 3)."""

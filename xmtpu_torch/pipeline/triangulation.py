@@ -87,7 +87,7 @@ def triangulate_tracks(obs_image, obs_track, xy_norm, R, t, n_tracks,
 
     i = torch.as_tensor(np.asarray(obs_image, dtype=np.int64), device=dev)
     xy, Rj, tj, w = f64(xy_norm), f64(R), f64(t), f64(weights)
-    by_track = Segments(obs_track, n_tracks, dev)
+    by_track = Segments(obs_track, n_tracks, dev, "tri track")
 
     P = torch.cat([Rj, tj[:, :, None]], dim=2)            # (N, 3, 4)
     Pe = P[i]                                             # (E, 3, 4)
