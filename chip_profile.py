@@ -29,6 +29,13 @@ prints alone (:func:`card_probe`: the dependent add's latency and an
 empty launch, which ``chip_smoke.py`` also measures in every run for its
 chain floors; the L2 and device-memory read rates, the L2's the source of
 ``chip_smoke.py``'s ``L2_READ_BYTES``).
+    python3 chip_profile.py --assembly [ROOT ...]
+
+times the dense assembly (:func:`assembly_times`) of scene A, scene B and
+scene D's two XM^2 passes (their inputs made once, by this checkout, as
+``chip_smoke.py`` phase 9 makes them: :func:`scene_d_assembly_inputs`),
+and repeats scene A's assembly and staircase, for the ``xmtpu_torch`` of
+each ROOT in its own process, one JSON line each, as ``--kernels`` does.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -36,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,7 +103,7 @@ def profile_dense(name, params, tol, dev):
     import chip_smoke as cs
     from xmtpu_torch.solver.staircase import solve_arrays
 
-    C, t_gen, t_asm = cs.scene(params, dev)
+    C, t_gen, t_asm = cs.scene(params, dev)[:3]
     kw = dict(max_rank=6, tol=tol, precision="mixed", inner_f32=True,
               verbose=False, device=dev)
     return profile_solve(name, C.shape[0] // 3,
@@ -348,7 +356,7 @@ def kernel_times(dev) -> dict:
     ops = []
     for name, params in (("A", cs.SCENE_A), ("512", cs.SCENE_512),
                          ("B", cs.SCENE_B)):
-        C, _, _ = cs.scene(params, dev)
+        C = cs.scene(params, dev)[0]
         ops.append((name, DenseQ(C.to(f32)), C.shape[0] // 3))
         del C
     scC = make_scene_window(**cs.SCENE_C)
@@ -423,6 +431,112 @@ def kernel_times(dev) -> dict:
     return out
 
 
+def scene_d_assembly_inputs(dev, cs) -> list:
+    """Scene D's dense XM^2 assembly inputs as ``chip_smoke.py`` phase 9
+    makes them (its database, the mapper, lifting with GT depth, then
+    ``xm2_solve`` at its defaults): each pass's ``create_matrix_arrays``
+    arguments ``(weights, edges, landmarks)``."""
+    from xmtpu_torch.__main__ import main as cli
+    from xmtpu_torch.pipeline import xm2
+    from xmtpu_torch.pipeline.frontend import (build_view_graph, lift_dataset,
+                                               parse_glomap_tempdata)
+
+    sc = cs.make_scene_d(**cs.SCENE_D)
+    with tempfile.TemporaryDirectory() as tmp:
+        db, out = os.path.join(tmp, "database.db"), os.path.join(tmp, "out")
+        cs.write_scene_d(db, sc)
+        if cli(["mapper", "--database_path", db, "--output_path", out],
+               device=dev) != 0:
+            raise RuntimeError("scene D mapper failed")
+        exp = parse_glomap_tempdata(out)
+    vg = build_view_graph(exp.matches, N=exp.N, M=exp.M)
+    lifted = lift_dataset(vg, lambda i: cs.scene_d_depth(sc, i),
+                          lambda i: sc.K)
+    with cs.recorded_calls(xm2, "create_matrix_arrays") as calls:
+        cs.run_xm2_d(xm2, lifted, vg.N, vg.M, dev)
+    return [a[:3] for a, _ in calls]
+
+
+def assembly_times(dev, inputs: str, reps: int = 5) -> dict:
+    """``create_matrix_arrays`` (f64) of the ``xmtpu_torch`` first on
+    ``sys.path`` on scene A, scene B and scene D's two XM^2 passes (the
+    arrays of the ``.npz`` file ``inputs``): after a warm-up, the
+    synchronised walls of ``reps`` assemblies (ms, sorted), the
+    ``sorted_segment_sum`` launches an assembly makes (0 where the tree
+    sums with ``index_add_``), and whether the ``reps`` gave the same bits
+    of C and Abar; then ``reps`` runs of scene A's assembly and mixed
+    staircase as ``chip_smoke.py`` phase 3 runs them (wall, outer and
+    inner iterations, primal bits), which vary as far as the assembly
+    does."""
+    import importlib.util
+
+    import torch
+
+    import xmtpu_torch
+    from xmtpu_torch import _build
+    from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
+    from xmtpu_torch.ops import segsum as ss
+    from xmtpu_torch.pipeline.synthetic import make_scene
+    from xmtpu_torch.solver.staircase import solve_arrays
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _build.build_all()
+    cases = []
+    for name, params in (("A", cs.SCENE_A), ("B", cs.SCENE_B)):
+        sc = make_scene(**params)
+        cases.append((name, (sc.weights, sc.edges, sc.landmarks)))
+    with np.load(inputs) as d:
+        for p in (1, 2):
+            cases.append((f"D pass {p}", (d[f"w{p}"], d[f"e{p}"],
+                                          d[f"l{p}"])))
+    out = dict(root=os.path.dirname(os.path.dirname(
+        os.path.abspath(xmtpu_torch.__file__))))
+    for name, (w, e, l) in cases:
+        def one():
+            C, Abar = create_matrix_arrays(w, e, l, device=dev)
+            torch.cuda.synchronize()
+            return C, Abar
+
+        one()
+        n0 = ss.sorted_segment_sum.launches
+        walls, first, same = [], None, True
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = one()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = got
+            else:
+                same = same and all(torch.equal(a, b)
+                                    for a, b in zip(got, first))
+            del got
+        del first
+        out[name] = dict(E=len(e), N=int(e[:, 0].max()),
+                         M=int(e[:, 1].max()), wall_ms=sorted(walls),
+                         median_ms=float(np.median(walls)),
+                         segsum_launches=(ss.sorted_segment_sum.launches
+                                          - n0) / reps,
+                         same_bits=same)
+    w, e, l = cases[0][1]
+    out["A staircase"] = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        C, _ = create_matrix_arrays(w, e, l, device=dev)
+        res = solve_arrays(C, max_rank=6, tol=1e-6, precision="mixed",
+                           inner_f32=True, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        out["A staircase"].append(dict(
+            wall_s=time.perf_counter() - t0, rank=res.rank,
+            outer=res.outer_iters, inner=res.total_inner,
+            primal=float(res.primal).hex()))
+        del C
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -444,6 +558,28 @@ def main() -> int:
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--kernels-in", os.path.abspath(root)],
                            check=True)
+        return 0
+    if sys.argv[1:2] == ["--assembly"]:
+        sys.path.insert(0, here)
+        import chip_smoke as cs
+        from xmtpu_torch import _build
+
+        _build.build_all()
+        print(cs.card_line(), flush=True)
+        calls = scene_d_assembly_inputs(torch.device("cuda"), cs)
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "scene_d_xm2.npz")
+            np.savez(npz, **{f"{k}{p}": a for p, call in enumerate(calls, 1)
+                             for k, a in zip("wel", call)})
+            for root in sys.argv[2:] or [here]:
+                subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--assembly-in", os.path.abspath(root), npz],
+                               check=True)
+        return 0
+    if sys.argv[1:2] == ["--assembly-in"]:
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(assembly_times(torch.device("cuda"), sys.argv[3])),
+              flush=True)
         return 0
     if sys.argv[1:2] == ["--kernels-in"]:
         sys.path.insert(0, sys.argv[2])

@@ -15,13 +15,21 @@ Phases (any failure exits non-zero; no phase is caught):
    print the launch geometry (``fused_tcg.step_geometry``, or
    ``dense_geometry`` for ``tcg_step_dense``, which the dense cases also
    time beside ``torch.matmul`` on the same W and ``tcg_step`` alone);
-3. scene A (n=120, the saddle-escape anchor): dense assembly on the card and
-   the mixed certified staircase, which must certify at rank 4 through the
-   dense kernel variant — one ``tcg_step_dense`` launch for each inner
-   iteration the fused loops enqueue, no ``tcg_step`` — and match the
-   port's own CPU run;
+3. scene A (n=120, the saddle-escape anchor): dense assembly on the card
+   (its sums by frame and by landmark through ``sorted_segment_sum``, one
+   launch each; its wall and launches printed) and the mixed certified
+   staircase, which must certify at rank 4 through the dense kernel
+   variant — one ``tcg_step_dense`` launch for each inner iteration the
+   fused loops enqueue, no ``tcg_step`` — and match the port's own CPU
+   run; then the assembly and the staircase again, which must repeat the
+   bits of C (phase 2's too), the primal's bits, the outer and inner
+   counts and every launch count; ``sorted_segment_sum`` held on the
+   assembly's layouts (by frame at D = 13, by landmark at D = 1: the CPU
+   twin's bits, twice, one launch a call, timed beside ``index_add_``);
+   the CPU staircase on the card's C, its outer and inner counts printed;
 4. scene B (n=1934): the same through the split variant, certified at
-   rank 3;
+   rank 3, its assembly's C the bits of phase 2's, the kernel held on its
+   assembly's layouts as in phase 3;
 5. scene C (n=6144, the implicit size): ``xm2._assemble_operator`` must pick
    the implicit ``SchurQ``; both segment-sum kernels are held against their
    plain twin on its real orderings (landmark and frame, D in {3, 6, 9, 18},
@@ -54,14 +62,17 @@ Phases (any failure exits non-zero; no phase is caught):
    call; ``filter_pairs`` on every stored pair with the rotations
    decomposed from their E (mask = the clean pairs, twice; its loops'
    iterations, launches and host reads); lifting with GT depth,
-   ``xm2_solve`` at its defaults (dense) and implicit at tol 1e-4
-   (``sorted_segment_sum`` launched), each certified at the JAX package's
-   rank within 5e-3 of its primal and 1.5x its rotation errors; the
-   implicit route at its default tol certified at the rank of the dense
-   route on its observations at the lam it picked, within 5e-3 of that
-   primal; ``sorted_segment_sum`` on each frame ordering the two implicit
-   runs' ``SchurQ`` operators built, through their planned offsets, at
-   every type and width those runs summed by frame, as in phase 10; and
+   ``xm2_solve`` at its defaults (dense: each pass's assembly wall, its
+   sums by frame and by landmark launched once a pass, and the kernel held
+   on each pass's assembly layouts as in phase 3) and implicit
+   at tol 1e-4 (``sorted_segment_sum`` launched), each certified at the
+   JAX package's rank within 5e-3 of its primal and 1.5x its rotation
+   errors; the implicit route at its default tol certified at the rank of
+   the dense route on its observations at the lam it picked, within 5e-3
+   of that primal; ``sorted_segment_sum`` on each frame ordering the two
+   implicit runs' ``SchurQ`` operators built, through their planned
+   offsets, at every type and width those runs summed by frame, as in
+   phase 10; and
    ``calibrate_view_graph`` within 1 % of the focal and 1e-6 of the JAX
    package's; per-stage seconds and the phase's device memory peak above
    what it started with;
@@ -85,8 +96,12 @@ Phases (any failure exits non-zero; no phase is caught):
    phase 9's lifted observations with a thirtieth of the rows moved as
    planted outliers, ``relpose_filter`` with phase 9's exported relative
    poses (kept and dropped counts against the JAX package's), ``xm2_solve``
-   at its defaults (rank and primal against the JAX package's) and
-   ``refine_bundle`` on its output: LM steps, final cost and the refined
+   at its defaults (rank and primal against the JAX package's; each
+   pass's dense assembly twice more from its inputs, the same bits of C
+   and Abar, the kernel held on each pass's assembly layouts as in phase
+   3, one traced: segment sums, no ``index_add_`` kernel) and
+   ``refine_bundle`` on its output (the XM^2 primal and the final cost
+   also printed in hex, to compare runs): LM steps, final cost and the refined
    rotations and centres against the JAX package's, GT errors within 1.5x
    of its, the mean reprojection error falling, one host read a LM step and
    ``sorted_segment_sum`` at the refine's f64 shapes and on both its named
@@ -99,7 +114,9 @@ Phases (any failure exits non-zero; no phase is caught):
    time by kernel;
 12. the parallel paths (``xmtpu_torch.parallel``) on a 4-slot mesh: four
    cards where there are four, else ``Mesh((cuda:0,) * 4)``, four slots on
-   the one card: (a) scene B's dense C row-sharded, one ``sharded_tr_step``
+   the one card; on more than one card, ``tcg_step`` at scene C's n once
+   on every card after the lead, with the lead current, giving the lead's
+   bits; (a) scene B's dense C row-sharded, one ``sharded_tr_step``
    (the loss falls; R', s', loss' within 1e-9 of the single-card outer
    step) and ``solve_arrays_sharded`` at phase 4's settings (certified rank
    3 within 1e-4 of the reference's primal by the matvec certificate,
@@ -148,11 +165,16 @@ row on the ``kernels`` line shows the most launched shape, f32 D=3 on the
 landmark ordering, with the tail's and the refine's layouts under ``tail``
 and ``refine`` (each with the launches of its layout and D in that phase's
 main-path run) and phase 9's frame orderings under ``schurq_frame`` (the
-launches of its layout, type and D in the two implicit runs).
+launches of its layout, type and D in the two implicit runs) and the
+dense assembly's layouts of scenes A and B and of the dense XM^2 passes
+of phases 9 and 11 under ``assembly`` (the launches of its layout in the
+run of its scene: phase 3's, phase 4's, phase 9's dense XM^2 and phase
+11's XM^2).
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -557,6 +579,8 @@ L2_READ_BYTES = 7.601e12
 # latency of one dependent add by item size (ns) and an empty launch's
 # device time (ms)
 FLOORS = {}
+# spin-kernel launches that open every traced window (see traced)
+TRACE_PAD = 256
 
 
 def log(*a):
@@ -600,19 +624,66 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return max(run(True) - base, 0.0)
 
 
-def device_ms(fn, reps: int, setup=None) -> float:
-    """Mean ms per call of the card's own work in ``fn``: the durations of
-    the kernels and copies it issues, as ``torch.profiler`` records them,
-    minus those of ``setup`` alone when given.  Host gaps between launches
-    do not count.  ``fn`` and ``setup`` each launch at least one kernel or
-    copy a call; a traced run that recorded fewer than ``reps`` of them (the
-    profiler now and then drops a whole run's events) is taken again, and
-    five such runs in a row raise."""
+def traced(fn) -> list:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activities): the
+    profiler's raw events, read as they are (building its event tree costs
+    the host seconds a traced call).  Once a process has worked the card a
+    while, the profiler drops the first device events of every window (on
+    an H100 with torch 2.11: none when fresh, 1-4 after 20-50 s of scene
+    A's staircases, 87 of 100 by phase 5 of a whole run), never the last:
+    so each window opens with ``TRACE_PAD`` launches of ATen's spin
+    kernel (``torch.cuda._sleep``), left out of the events returned, and a
+    window in which none of them was recorded is taken again with twice as
+    many."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def busy_us(with_fn):
+    pad = TRACE_PAD
+    for _ in range(6):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.profiler.kineto_results.events()
+        kept = [e for e in ev if not (e.device_type() == DeviceType.CUDA
+                                      and "spin_kernel" in e.name())]
+        if len(kept) < len(ev):
+            return kept
+        pad *= 2
+    raise RuntimeError(f"traced: the profiler kept none of the {pad // 2} "
+                       f"launches opening its window")
+
+
+def device_events(ev) -> list:
+    """``(name, ns)`` of the device events among :func:`traced`'s."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns()) for e in ev
+            if e.device_type() == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, setup=None) -> float:
+    """Mean ms per call of the card's own work in ``fn``: the durations of
+    the kernels and copies it issues, as ``torch.profiler`` records them
+    (:func:`traced`), minus those of ``setup`` alone when given.  Host gaps
+    between launches do not count.  ``fn`` and ``setup`` each launch at
+    least one kernel or copy a call; a traced run that recorded fewer than
+    ``reps`` of them (the profiler now and then drops a whole run's events)
+    is taken again, and five such runs in a row raise."""
+    import torch
+
+    def calls(with_fn):
+        for _ in range(reps):
+            if setup:
+                setup()
+            if with_fn:
+                fn()
+
+    def busy_ns(with_fn):
         for _ in range(5):
             for _ in range(3):
                 if setup:
@@ -620,73 +691,48 @@ def device_ms(fn, reps: int, setup=None) -> float:
                 if with_fn:
                     fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    if setup:
-                        setup()
-                    if with_fn:
-                        fn()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            ev = device_events(traced(lambda: calls(with_fn)))
             if len(ev) >= reps:
-                return sum(e.time_range.end - e.time_range.start for e in ev)
+                return sum(ns for _, ns in ev)
         raise RuntimeError(f"device_ms: the profiler recorded {len(ev)} "
                            f"device events over {reps} calls, five times")
 
-    base = busy_us(False) if setup else 0.0
-    return max(busy_us(True) - base, 0.0) / reps / 1e3
+    base = busy_ns(False) if setup else 0.0
+    return max(busy_ns(True) - base, 0.0) / reps / 1e6
 
 
 def launch_ms(fn, reps: int, tries: int = 5) -> float:
     """Mean device ms of the one kernel that each call of ``fn`` launches,
-    over ``reps`` calls under ``torch.profiler``: the mean of the launches
-    it recorded.  The profiler drops launches at times (3 of 50 in one
-    process, 34 of 50 after the tail's traced calls in another), and a mean
-    over the launches it kept is a mean over identical launches; a traced
-    run that recorded none is taken again, ``tries`` times.  More than one
-    kernel a call raises."""
+    over ``reps`` calls under ``torch.profiler`` (:func:`traced`): the mean
+    of the launches it recorded.  The profiler drops launches at times (3 of
+    50 in one process, 34 of 50 after the tail's traced calls in another),
+    and a mean over the launches it kept is a mean over identical launches;
+    a traced run that recorded none is taken again, ``tries`` times.  More
+    than one kernel a call raises."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset"))]
+        ev = [ns for n, ns in device_events(traced(
+            lambda: [fn() for _ in range(reps)]))
+              if not n.startswith(("Memcpy", "Memset"))]
         if len(ev) > reps:
             raise RuntimeError(f"launch_ms: {len(ev)} kernels recorded over "
                                f"{reps} calls of one kernel each")
         if ev:
-            return sum(ev) / len(ev) / 1e3
+            return sum(ev) / len(ev) / 1e6
     raise RuntimeError(f"launch_ms: no kernel recorded, {tries} times")
 
 
 def kernel_mean_ms(fn, name: str):
-    """Runs ``fn`` once under ``torch.profiler``: the mean device ms of the
-    kernels whose name holds ``name``, and their count."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
+    """Runs ``fn`` once under ``torch.profiler`` (:func:`traced`): the mean
+    device ms of the kernels whose name holds ``name``, and their count."""
+    ev = [ns for n, ns in device_events(traced(fn)) if name in n]
     if not ev:
         raise RuntimeError(f"kernel_mean_ms: no device event named {name}")
-    return sum(ev) / len(ev) / 1e3, len(ev)
+    return sum(ev) / len(ev) / 1e6, len(ev)
 
 
 def f32_phase_inputs(q, R, s_ex, outer: int = 0, lam=0.0):
@@ -1308,20 +1354,38 @@ def hold_carried_operator(scB, dev) -> dict:
     return out
 
 
-def scene(params, device):
-    from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
-    from xmtpu_torch.pipeline.synthetic import make_scene
+def assemble(weights, edges, landmarks, device, precision="f64"):
+    """``create_matrix_arrays`` on ``device``, synchronised: ``(C, Abar,
+    seconds, launches)``, the ``sorted_segment_sum`` launches it made by
+    layout (its frame and landmark sums)."""
     import torch
+
+    from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
+    from xmtpu_torch.ops import segsum as ss
+
+    before = dict(ss.sorted_segment_sum.layouts)
+    t0 = time.perf_counter()
+    C, Abar = create_matrix_arrays(weights, edges, landmarks,
+                                   precision=precision, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return C, Abar, secs, {k: v - before.get(k, 0) for k, v
+                           in ss.sorted_segment_sum.layouts.items()
+                           if v != before.get(k, 0)}
+
+
+def scene(params, device):
+    """``make_scene(**params)`` and its dense assembly on ``device``: ``(C,
+    make_scene seconds, assembly seconds, the assembly's launches by
+    layout, the scene)``."""
+    from xmtpu_torch.pipeline.synthetic import make_scene
 
     t0 = time.perf_counter()
     sc = make_scene(**params)
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    C, _ = create_matrix_arrays(sc.weights, sc.edges, sc.landmarks,
-                                device=device)
-    torch.cuda.synchronize()
-    t_asm = time.perf_counter() - t0
-    return C, t_gen, t_asm
+    C, _, t_asm, launches = assemble(sc.weights, sc.edges, sc.landmarks,
+                                     device)
+    return C, t_gen, t_asm, launches, sc
 
 
 class SceneD(NamedTuple):
@@ -1571,35 +1635,28 @@ def scene_d_report(out, sc: SceneD):
 
 
 def device_work(fn, tries: int = 5):
-    """Runs ``fn`` once under ``torch.profiler``: the kernels it launched
-    on the card, its device-to-host copies, its scalar reads
-    (``_local_scalar_dense``: ``bool``/``float`` of a card tensor), its
-    ``index_add_`` kernels, the summed durations of its device events
-    (``busy_ms``) and the six names that took most of them (``top``: name,
-    count, ms).  The profiler's raw events are read as they are (building
-    its event tree costs the host seconds a traced call).  A traced run
-    with no kernel or no copy recorded (the profiler now and then drops a
-    run's events) is taken again."""
-    import torch
+    """Runs ``fn`` once under ``torch.profiler`` (:func:`traced`): the
+    kernels it launched on the card, its device-to-host copies, its scalar
+    reads (``_local_scalar_dense``: ``bool``/``float`` of a card tensor),
+    its ``index_add_`` kernels, its segment-sum kernels, the summed
+    durations of its device events (``busy_ms``) and the six names that
+    took most of them (``top``: name, count, ms).  A traced run with no
+    kernel or no copy recorded (the profiler now and then drops a run's
+    events) is taken again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = prof.profiler.kineto_results.events()
-        dev_ev = [(e.name(), e.duration_ns()) for e in ev
-                  if e.device_type() == DeviceType.CUDA]
+        ev = traced(fn)
+        dev_ev = device_events(ev)
         kernels = sum(not n.startswith(("Memcpy", "Memset"))
                       for n, _ in dev_ev)
         d2h = sum("DtoH" in n for n, _ in dev_ev)
         reads = sum(e.name() == "aten::_local_scalar_dense" for e in ev
                     if e.device_type() == DeviceType.CPU)
-        # index_add_'s CUDA kernels (ATen's indexFuncSmall/LargeIndex)
+        # index_add_'s CUDA kernels (ATen's indexFuncSmall/LargeIndex), and
+        # the segment sums' (csrc/segsum.cu)
         index_add = sum("indexFunc" in n for n, _ in dev_ev)
+        segsum = sum("segsum" in n for n, _ in dev_ev)
         by_name = {}
         for n, ns in dev_ev:
             c, t = by_name.get(n, (0, 0))
@@ -1608,7 +1665,7 @@ def device_work(fn, tries: int = 5):
             by_name.items(), key=lambda kv: -kv[1][1])[:6]]
         if kernels and d2h:
             return dict(launches=kernels, d2h_copies=d2h, scalar_reads=reads,
-                        index_add=index_add,
+                        index_add=index_add, segsum=segsum,
                         busy_ms=sum(ns for _, ns in dev_ev) / 1e6, top=top)
     raise RuntimeError("device_work: the profiler recorded no kernel or no "
                        f"copy, {tries} times")
@@ -1681,10 +1738,11 @@ def run_scene_d(dev, counts):
     package's counts; ``filter_pairs``' launches and host reads; lifting
     with GT depth; ``xm2_solve`` dense and implicit, held against the JAX
     package's runs; ``calibrate_view_graph`` on the card.  Then the segment
-    sum on the frame orderings of the implicit runs' operators
+    sum on the dense run's assembly layouts (:func:`hold_assembly_sums`)
+    and on the frame orderings of the implicit runs' operators
     (:func:`hold_schurq_frames`).  Returns the scene, the mapper's parsed
     export and the lifted observations, which phase 11 refines, and the
-    frame orderings' cases."""
+    frame orderings' and the assembly layouts' cases."""
     import filecmp
     import tempfile
 
@@ -1821,12 +1879,14 @@ def run_scene_d(dev, counts):
         f"{len(lifted[0])} observations, {vg.N} frames, {vg.M} tracks")
     R_gt = scD.R.transpose(0, 2, 1)
     frame_runs = []     # the implicit runs' operators' frame orderings
+    asm_cases = []      # the kernel on the dense run's assembly layouts
     for tag, kw, ref in (
             ("dense", XM2_D_ARGS["dense"], XM2_D["dense"]),
             ("implicit", XM2_D_ARGS["implicit"], XM2_D["implicit"]),
             ("implicit default tol", dict(implicit=True), XM2_D_DEFAULT)):
         reset_counts()
-        with _SchurQRecorder() as rec:
+        with _SchurQRecorder() as rec, recorded_calls(
+                xm2, "create_matrix_arrays") as asm_in:
             out, last, ranks, timer, wall = run_xm2_d(xm2, lifted, vg.N,
                                                       vg.M, dev, **kw)
         counts[f"D {tag}"] = read_counts()
@@ -1843,6 +1903,23 @@ def run_scene_d(dev, counts):
             f"{counts[f'D {tag}']}; phases:")
         for line in timer.report().splitlines():
             log(f"[smoke]   {line}")
+        if tag == "dense":
+            asm = {k: v for k, v in counts["D dense"][
+                "sorted_segment_sum layouts"].items()
+                if k.startswith("assembly")}
+            log(f"[smoke] scene D xm2_solve dense: assembly walls pass 1 "
+                f"{timer.totals['pass1_assemble']:.3f} s, pass 2 "
+                f"{timer.totals['pass2_assemble']:.3f} s; sorted_segment_sum "
+                f"launches {asm}")
+            if not (asm.get("assembly frame f64 D=13") == 2
+                    and asm.get("assembly landmark f64 D=1") == 2):
+                raise AssertionError(f"scene D dense: the two assemblies' "
+                                     f"segment sums launched {asm}")
+            for p, (a, _) in enumerate(asm_in, 1):
+                asm_cases += hold_assembly_sums(
+                    f"scene D xm2_solve dense pass {p}", a[1], ("D dense",),
+                    dev)
+        del asm_in
         if ref is XM2_D_DEFAULT:
             hold_default_tol(xm2, out, last, dev)
             continue
@@ -1878,7 +1955,7 @@ def run_scene_d(dev, counts):
     if not (abs(f_cal - f_true) <= 0.01 * f_true
             and abs(f_cal - CALIB_D) <= 1e-6 * CALIB_D):
         raise AssertionError(f"scene D calibration: focal {f_cal}")
-    return scD, exp, lifted, frame_cases
+    return scD, exp, lifted, frame_cases, asm_cases
 
 
 def tail_gt_errors(R, t, sc: SceneD, frames=None) -> dict:
@@ -1913,6 +1990,23 @@ def tail_poses(blob: str):
     v = np.frombuffer(base64.b64decode("".join(blob.split())),
                       dtype=np.float32).astype(np.float64).reshape(2, -1, 3)
     return np.stack([_rotvec(w) for w in v[0]]), v[1]
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """``module.name`` wrapped while open: yields the list of its calls'
+    ``(args, kwargs)``, appended as they are made."""
+    calls, orig = [], getattr(module, name)
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
 
 
 class _Recorder:
@@ -2045,6 +2139,27 @@ def tail_case_line(where: str, c: dict) -> str:
             f"{c['chain_floor']:.5f} ms"
             + (f"; earlier design {c['prev_ms']} ms" if c["prev_ms"] else "")
             + "; the CPU twin's bits, twice, one launch a call")
+
+
+def hold_assembly_sums(where: str, edges, runs, dev) -> list:
+    """``sorted_segment_sum`` on the dense assembly's layouts of ``edges``
+    (1-based ``[frame, landmark]``, as ``create_matrix_arrays`` takes
+    them), as :func:`hold_tail_segsum` holds the tail's: by frame at D =
+    13, by landmark at D = 1, by pair at D = 4 where a (frame, landmark)
+    pair repeats.  Each case is logged under ``where`` and carries
+    ``runs``, the main-path runs whose launches of its layout it reports."""
+    edges = np.asarray(edges, dtype=np.int64)
+    f, l = edges[:, 0] - 1, edges[:, 1] - 1
+    N, M = int(f.max()) + 1, int(l.max()) + 1
+    layouts = [("assembly frame", f, N, 13), ("assembly landmark", l, M, 1)]
+    pairs, of_edge = np.unique(f * M + l, return_inverse=True)
+    if len(pairs) < len(f):
+        layouts.append(("assembly pair", of_edge.ravel(), len(pairs), 4))
+    cases = hold_tail_segsum(layouts, dev, reps=20)
+    for c in cases:
+        c["runs"] = runs
+        log(tail_case_line(where, c))
+    return cases
 
 
 def hold_schurq_frames(runs, counts, dev) -> list:
@@ -2426,6 +2541,55 @@ def hold_depth_net(dev) -> dict:
     return dict(ms=ms, **worst)
 
 
+def hold_assembly_d(asm_in, timer, dev) -> list:
+    """Scene D's dense XM^2 assemblies (phase 11): each pass's inputs
+    (``asm_in``, recorded from its ``create_matrix_arrays`` calls)
+    assembled twice more must give the same bits of C and Abar, the
+    segment sums by frame and by landmark launched once each an assembly;
+    the kernel held on each pass's layouts (:func:`hold_assembly_sums`);
+    the first pass's assembly traced must show segment sums and no
+    ``index_add_`` kernel.  Returns the kernel's cases."""
+    import torch
+
+    if len(asm_in) != 2:
+        raise AssertionError(f"scene D refine: {len(asm_in)} dense "
+                             f"assemblies, expected two passes")
+    cases = []
+    for p, (a, k) in enumerate(asm_in, 1):
+        runs = [assemble(*a[:3], dev, k.get("precision", "f64"))
+                for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(runs[0][:2],
+                                                     runs[1][:2]))
+        log(f"[smoke] scene D refine: XM^2 pass {p} assembly "
+            f"({len(a[1])} observations; "
+            f"{timer.totals[f'pass{p}_assemble']:.3f} s in the solve) twice: "
+            f"{runs[0][2]:.3f} s, {runs[1][2]:.3f} s, sorted_segment_sum "
+            f"launches {runs[0][3]}; C's and Abar's bits equal {same}")
+        if not same:
+            raise AssertionError(f"scene D refine: pass {p}'s assembly "
+                                 f"does not repeat its bits")
+        if sorted(runs[0][3].values()) != [1, 1] or not all(
+                k.startswith(("assembly frame", "assembly landmark"))
+                for k in runs[0][3]):
+            raise AssertionError(f"scene D refine: pass {p}'s assembly "
+                                 f"launched {runs[0][3]}")
+        del runs
+        cases += hold_assembly_sums(f"scene D refine XM^2 pass {p}", a[1],
+                                    ("D refine XM^2",), dev)
+    a, k = asm_in[0]
+    work = device_work(lambda: assemble(*a[:3], dev,
+                                        k.get("precision", "f64")))
+    log(f"[smoke] scene D refine: XM^2 pass 1 assembly traced: "
+        f"{work['launches']} kernels, {work['segsum']} segment sums, "
+        f"{work['index_add']} index_add_ kernels, device busy "
+        f"{work['busy_ms']:.3f} ms; top {work['top'][:4]}")
+    if not work["segsum"] or work["index_add"]:
+        raise AssertionError(f"scene D refine: the traced assembly shows "
+                             f"{work['segsum']} segment sums and "
+                             f"{work['index_add']} index_add_ kernels")
+    return cases
+
+
 def run_refine_d(dev, counts, scD, exp, lifted) -> list:
     """Phase 11: XM-SfM's last stage on scene D (``examples/05_refine.py``'s
     flow): planted outliers, ``relpose_filter`` with the relative poses of
@@ -2433,7 +2597,8 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
     on the card, held against the JAX package and ground truth; the
     segment-sum kernel on the refine's two layouts; the tiny depth net; a
     second ``refine_bundle`` call repeating its bits and a short one traced.
-    Returns the kernel's cases on the refine's layouts."""
+    Returns the kernel's cases on the refine's layouts and on the XM^2
+    passes' assembly layouts."""
     import torch
 
     from xmtpu_torch.pipeline import refine
@@ -2462,13 +2627,18 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
             raise AssertionError(f"scene D relpose_filter: {k} {v} vs "
                                  f"{REFINE_D[k]}")
 
-    out, last, ranks, timer, wall = run_xm2_d(xm2, (e2, w2, l2), exp.N,
-                                              exp.M, dev)
+    # the dense assemblies' inputs are kept, to assemble again below
+    reset_counts()
+    with recorded_calls(xm2, "create_matrix_arrays") as asm_in:
+        out, last, ranks, timer, wall = run_xm2_d(xm2, (e2, w2, l2), exp.N,
+                                                  exp.M, dev)
+    counts["D refine XM^2"] = read_counts()
     rot = rotation_error_stats(out.R_real, scD.R.transpose(0, 2, 1),
                                out.indices_all)
     log(f"[smoke] scene D refine: xm2_solve wall {wall:.2f} s, ranks "
         f"{ranks}, certified {last.certified} at rank {last.rank}, primal "
-        f"{last.primal!r} (JAX package {REFINE_D['primal']!r}, rank "
+        f"{last.primal!r} ({float(last.primal).hex()}; JAX package "
+        f"{REFINE_D['primal']!r}, rank "
         f"{REFINE_D['rank']}), lam {out.lam}, rotation errors {rot} "
         f"(JAX package {REFINE_D_XM2_ROT})")
     if not (last.certified and last.rank == REFINE_D["rank"]):
@@ -2478,6 +2648,7 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
                                                * REFINE_D["primal"]):
         raise AssertionError(f"scene D refine: XM^2 primal {last.primal}")
     check_rotations("scene D refine XM^2", rot, REFINE_D_XM2_ROT)
+    asm_cases = hold_assembly_d(asm_in, timer, dev)
 
     obs2d = out.landmarks[:, :2] / out.landmarks[:, 2:3]
     args = (out.edges, obs2d, out.R_real, out.t_est, out.p_est)
@@ -2494,7 +2665,8 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
     log(f"[smoke] scene D refine_bundle ({len(out.edges)} observations, "
         f"{out.t_est.shape[1]} frames, {out.p_est.shape[1]} points): "
         f"{t_ref:.2f} s, {res.iterations} LM steps, final cost "
-        f"{res.final_cost!r} (JAX package {REFINE_D['iterations']} steps, "
+        f"{res.final_cost!r} ({float(res.final_cost).hex()}; JAX package "
+        f"{REFINE_D['iterations']} steps, "
         f"{REFINE_D['final_cost']!r}); host reads {reads}; "
         f"sorted_segment_sum launches "
         f"{counts['D refine']['sorted_segment_sum']} by shape {shapes}")
@@ -2592,7 +2764,7 @@ def run_refine_d(dev, counts, scD, exp, lifted) -> list:
                              f"reads, {work['d2h_copies']} copies to the host "
                              f"over {steps} LM steps, {work['index_add']} "
                              f"index_add_ kernels")
-    return cases
+    return cases, asm_cases
 
 
 def traced_wall(fn):
@@ -2761,6 +2933,45 @@ def spawn_ranks(target, args, what, out_dir) -> list:
     return out
 
 
+def hold_step_on_cards(Q_C, dev) -> None:
+    """``tcg_step`` at scene C's n (a cluster of ``MAX_CLUSTER`` blocks) on
+    the f32 phase's first inputs: launched on the lead card ``dev``, then
+    once on every other card with the lead current, each on a copy of the
+    same inputs, and each giving the lead's bits."""
+    import torch
+
+    from xmtpu_torch.ops import fused_tcg as ft
+    from xmtpu_torch.ops import manifold as mf
+    from xmtpu_torch.ops.qop import cast_qop
+
+    n = Q_C.n_cameras
+    inp = f32_phase_inputs(cast_qop(Q_C, torch.float32),
+                           mf.identity_frames(n, 3, device=dev),
+                           torch.ones((n,), dtype=torch.float64, device=dev))
+    _, const, state, sc, cfgsc = step_inputs(inp)
+    max_inner = int(inp["cfg"].max_inner)
+
+    def launch_on(card):
+        c = [v.to(card) for v in const.values()]
+        st = [t.to(card) for t in state]
+        sc_ = sc.to(card)
+        with torch.cuda.device(dev):
+            ft.tcg_step(*c, *st, sc_, cfgsc.to(card), max_inner)
+        return [t.cpu() for t in (c[-1], *st, sc_)]
+
+    lead = launch_on(dev)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+             if i != dev.index]
+    for card in cards:
+        got = launch_on(card)
+        if not all(torch.equal(a, b) for a, b in zip(got, lead)):
+            raise AssertionError(f"phase 12: tcg_step at n={n} on {card} "
+                                 f"with {dev} current differs from {dev}'s")
+    log(f"[smoke] parallel: tcg_step at n={n} "
+        f"({geometry_text(*ft.step_geometry(n, 3))}) on "
+        f"{[str(c) for c in cards]} with {dev} current: {dev}'s bits")
+
+
 def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
     """Phase 12: the parallel paths.  (a) scene B's dense C row-sharded over
     a 4-slot mesh (four cards where there are four, else four slots on the
@@ -2795,9 +3006,13 @@ def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
         mesh_tag = (f"Mesh(({dev},) * {PAR_SLOTS}): {PAR_SLOTS} slots on one "
                     f"card")
     log(f"[smoke] parallel: {mesh_tag}; {card}")
+    if cards > 1:
+        hold_step_on_cards(Q_C, dev)
+    else:
+        log("[smoke] parallel: tcg_step on a second card: not run (1 card)")
 
     # ---- (a) scene B dense, row-sharded ----
-    C_B, _, _ = scene(SCENE_B, dev)
+    C_B = scene(SCENE_B, dev)[0]
     nB = C_B.shape[0] // 3
     R0 = mf.identity_frames(nB, 3, device=dev)
     s0 = torch.ones((nB,), dtype=torch.float64, device=dev)
@@ -2837,7 +3052,8 @@ def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
     path_a = res_a.stages[-1]["cert_path"]
     log(f"[smoke] parallel (a) solve_arrays_sharded scene B: rank "
         f"{res_a.rank} status {res_a.status} primal {res_a.primal!r} "
-        f"({res_a.primal - primal_B:+.3e} from phase 4's single-card "
+        f"({float(res_a.primal).hex()}; "
+        f"{res_a.primal - primal_B:+.3e} from phase 4's single-card "
         f"{primal_B!r}; reference {PRIMAL_B!r}) outer {res_a.outer_iters} "
         f"inner {res_a.total_inner}; certificate: matvec flow, path "
         f"{path_a}; wall {wall_a:.2f} s; {busy_text(work_a, box['s'])}; "
@@ -2883,7 +3099,8 @@ def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
     del q32
     log(f"[smoke] parallel (b) solve_arrays_sharded scene C: rank "
         f"{res_b.rank} status {res_b.status} primal {res_b.primal!r} "
-        f"(reference {PRIMAL_C!r}) outer {res_b.outer_iters} inner "
+        f"({float(res_b.primal).hex()}; reference {PRIMAL_C!r}) outer "
+        f"{res_b.outer_iters} inner "
         f"{res_b.total_inner}, certificate path "
         f"{res_b.stages[-1]['cert_path']}; wall {wall_b:.2f} s; segment "
         f"sums a slot {st['slot_sums']}, "
@@ -2992,7 +3209,7 @@ def run(dev, card: str) -> int:
     from xmtpu_torch.solver import trust_region as tr
     from xmtpu_torch.ops.schurq import SchurQ
     from xmtpu_torch.pipeline import xm2
-    from xmtpu_torch.pipeline.synthetic import make_scene, make_scene_window
+    from xmtpu_torch.pipeline.synthetic import make_scene_window
     from xmtpu_torch.solver.certificate import certify
     from xmtpu_torch.solver.staircase import solve_arrays
     from xmtpu_torch.utils.timer import PhaseTimer
@@ -3017,7 +3234,7 @@ def run(dev, card: str) -> int:
     # ---- 2. kernels vs plain ---------------------------------------------
     lam = 0.0
     f32 = torch.float32
-    C_A, gen_A, asm_A = scene(SCENE_A, dev)
+    C_A, gen_A, asm_A, lay_A, scA = scene(SCENE_A, dev)
     nA = C_A.shape[0] // 3
     qA, qA32 = DenseQ(C_A), DenseQ(C_A.to(f32))
     cases = []
@@ -3044,13 +3261,13 @@ def run(dev, card: str) -> int:
         raise AssertionError("scene A escape linesearch failed")
     cases.append(("A o=4", qA, f32_phase_inputs(qA32, R4, s3), True))
     del qA32
-    C_512, _, _ = scene(SCENE_512, dev)
+    C_512 = scene(SCENE_512, dev)[0]
     n512 = C_512.shape[0] // 3
     cases.append(("n512 o=3", DenseQ(C_512), f32_phase_inputs(
         DenseQ(C_512.to(f32)), mf.identity_frames(n512, 3, device=dev),
         torch.ones((n512,), dtype=torch.float64, device=dev)), True))
     del C_512
-    C_B, gen_B, asm_B = scene(SCENE_B, dev)
+    C_B, gen_B, asm_B, _, scB = scene(SCENE_B, dev)
     nB = C_B.shape[0] // 3
     qB, qB32 = DenseQ(C_B), DenseQ(C_B.to(f32))
     RB = mf.identity_frames(nB, 3, device=dev)
@@ -3065,39 +3282,51 @@ def run(dev, card: str) -> int:
         held[case[0]] = hold_case(*case)
     del cases, qA, qB
 
-    # ---- 3. scene A: the mixed certified staircase -------------------------
-    log(f"[smoke] scene A: make_scene {gen_A:.2f} s, assembly {asm_A:.3f} s")
-    # the fused loops' iterations: each enqueues FLAG_EVERY launches between
-    # reads of the done flag, so a loop that ran i iterations enqueued
-    # FLAG_EVERY * ceil(i / FLAG_EVERY)
-    fused_iters = []
+    # ---- 3. scene A: the mixed certified staircase, twice -------------------
+    log(f"[smoke] scene A: make_scene {gen_A:.2f} s, assembly {asm_A:.3f} s "
+        f"(first CUDA use), sorted_segment_sum launches {lay_A}")
     fused_loop = ft.inner_tcg_fused
 
-    def counted_loop(*a, **k):
-        r = fused_loop(*a, **k)
-        fused_iters.append(r[5])
-        return r
+    def staircase_a(verbose):
+        """Scene A assembled anew and its mixed staircase: ``(C, result,
+        assembly seconds, its launches by layout, staircase wall, the fused
+        loops' iterations)``.  Each fused loop enqueues FLAG_EVERY launches
+        between reads of the done flag, so a loop that ran i iterations
+        enqueued FLAG_EVERY * ceil(i / FLAG_EVERY)."""
+        iters = []
+
+        def counted_loop(*a, **k):
+            r = fused_loop(*a, **k)
+            iters.append(r[5])
+            return r
+
+        ft.inner_tcg_fused = counted_loop
+        try:
+            C, _, t_asm, lay = assemble(scA.weights, scA.edges,
+                                        scA.landmarks, dev)
+            t0 = time.perf_counter()
+            res = solve_arrays(C, max_rank=6, tol=1e-6, precision="mixed",
+                               inner_f32=True, verbose=verbose, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ft.inner_tcg_fused = fused_loop
+        return C, res, t_asm, lay, wall, iters
 
     reset_counts()
-    ft.inner_tcg_fused = counted_loop
-    try:
-        t0 = time.perf_counter()
-        res_A = solve_arrays(C_A, max_rank=6, tol=1e-6, precision="mixed",
-                             inner_f32=True, verbose=True, device=dev)
-        torch.cuda.synchronize()
-        wall_A = time.perf_counter() - t0
-    finally:
-        ft.inner_tcg_fused = fused_loop
+    C_A1, res_A, asm_A1, lay_A1, wall_A, fused_iters = staircase_a(True)
     counts = {"A": read_counts()}
     launches_A = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
     enqueued_A = sum(ft.FLAG_EVERY * max(1, -(-i // ft.FLAG_EVERY))
                      for i in fused_iters)
-    log(f"[smoke] scene A: rank {res_A.rank} status {res_A.status} primal "
-        f"{res_A.primal!r} gap {res_A.gap:.3e} lam_min {res_A.lam_min:.3e} "
-        f"outer {res_A.outer_iters} inner {res_A.total_inner} wall "
-        f"{wall_A:.2f} s launches tcg_step/tcg_step_dense {launches_A}; "
-        f"{len(fused_iters)} fused loops ran {sum(fused_iters)} inner "
-        f"iterations and enqueued {enqueued_A}")
+    log(f"[smoke] scene A: assembly {asm_A1:.3f} s, sorted_segment_sum "
+        f"launches {lay_A1}; rank {res_A.rank} status {res_A.status} primal "
+        f"{res_A.primal!r} ({float(res_A.primal).hex()}) gap "
+        f"{res_A.gap:.3e} lam_min {res_A.lam_min:.3e} outer "
+        f"{res_A.outer_iters} inner {res_A.total_inner} wall {wall_A:.2f} s "
+        f"launches tcg_step/tcg_step_dense {launches_A}; {len(fused_iters)} "
+        f"fused loops ran {sum(fused_iters)} inner iterations and enqueued "
+        f"{enqueued_A}")
     for st in res_A.stages:
         log(f"[smoke] scene A stage {st}")
     if not (res_A.certified and res_A.rank == 4 and res_A.status == 1):
@@ -3108,30 +3337,67 @@ def run(dev, card: str) -> int:
         raise AssertionError(f"scene A: expected one tcg_step_dense launch "
                              f"for each of {enqueued_A} enqueued iterations "
                              f"and no tcg_step, got {launches_A}")
+    if not (lay_A1.get("assembly frame f64 D=13") == 1
+            and lay_A1.get("assembly landmark f64 D=1") == 1):
+        raise AssertionError(f"scene A: the assembly's segment sums "
+                             f"launched {lay_A1}")
+    # the assembly and the staircase again: the same bits of C (also
+    # phase 2's), the same primal bits, iterations and launches
+    reset_counts()
+    C_A2, res_A2, asm_A2, _, wall_A2, iters_A2 = staircase_a(False)
+    counts_A2 = read_counts()
+    same_C = torch.equal(C_A1, C_A2) and torch.equal(C_A1, C_A)
+    same_run = (float(res_A2.primal).hex() == float(res_A.primal).hex()
+                and (res_A2.rank, res_A2.outer_iters, res_A2.total_inner)
+                == (res_A.rank, res_A.outer_iters, res_A.total_inner)
+                and iters_A2 == fused_iters and counts_A2 == counts["A"])
+    log(f"[smoke] scene A again: assembly {asm_A2:.3f} s, C's bits equal "
+        f"{same_C}; staircase wall {wall_A2:.2f} s, primal "
+        f"{float(res_A2.primal).hex()} outer {res_A2.outer_iters} inner "
+        f"{res_A2.total_inner}, launches {counts_A2}: the same run {same_run}")
+    if not (same_C and same_run):
+        raise AssertionError("scene A: a second assembly and staircase do "
+                             "not repeat the first's bits")
+    del C_A1, C_A2
+    asm_cases = hold_assembly_sums("scene A assembly", scA.edges, ("A",),
+                                   dev)
     t0 = time.perf_counter()
     res_A_cpu = solve_arrays(C_A.cpu(), max_rank=6, tol=1e-6,
                              precision="mixed", inner_f32=True,
                              verbose=False, device="cpu")
-    log(f"[smoke] scene A on the CPU: rank {res_A_cpu.rank} primal "
-        f"{res_A_cpu.primal!r} ({time.perf_counter() - t0:.2f} s)")
+    log(f"[smoke] scene A on the CPU, the card's C: rank {res_A_cpu.rank} "
+        f"primal {res_A_cpu.primal!r} ({float(res_A_cpu.primal).hex()}) "
+        f"outer {res_A_cpu.outer_iters} inner {res_A_cpu.total_inner} "
+        f"({time.perf_counter() - t0:.2f} s)")
     if not (res_A_cpu.certified and res_A_cpu.rank == res_A.rank):
         raise AssertionError("scene A: CUDA and CPU runs disagree")
     if abs(res_A_cpu.primal - res_A.primal) > 1e-5 * abs(res_A.primal):
         raise AssertionError("scene A: CUDA and CPU primals disagree")
 
     # ---- 4. scene B: the split variant -------------------------------------
-    log(f"[smoke] scene B: make_scene {gen_B:.2f} s, assembly {asm_B:.3f} s")
     reset_counts()
+    C_B1, _, asm_B1, lay_B1 = assemble(scB.weights, scB.edges, scB.landmarks,
+                                       dev)
     t0 = time.perf_counter()
-    res_B = solve_arrays(C_B, max_rank=6, tol=1e-3, precision="mixed",
+    res_B = solve_arrays(C_B1, max_rank=6, tol=1e-3, precision="mixed",
                          inner_f32=True, verbose=True, device=dev)
     torch.cuda.synchronize()
     wall_B = time.perf_counter() - t0
     counts["B"] = read_counts()
     launches_B = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
+    same_B = torch.equal(C_B1, C_B)
+    log(f"[smoke] scene B: make_scene {gen_B:.2f} s, assembly {asm_B1:.3f} s "
+        f"({asm_B:.3f} s in phase 2), sorted_segment_sum launches {lay_B1}; "
+        f"C's bits equal phase 2's {same_B}")
+    if not same_B:
+        raise AssertionError("scene B: two assemblies give different bits")
+    del C_B1
+    asm_cases += hold_assembly_sums("scene B assembly", scB.edges, ("B",),
+                                    dev)
     log(f"[smoke] scene B: rank {res_B.rank} status {res_B.status} primal "
-        f"{res_B.primal!r} gap {res_B.gap:.3e} lam_min {res_B.lam_min:.3e} "
-        f"outer {res_B.outer_iters} inner {res_B.total_inner} wall "
+        f"{res_B.primal!r} ({float(res_B.primal).hex()}) gap "
+        f"{res_B.gap:.3e} lam_min {res_B.lam_min:.3e} outer "
+        f"{res_B.outer_iters} inner {res_B.total_inner} wall "
         f"{wall_B:.2f} s launches tcg_step/tcg_step_dense {launches_B}")
     for st in res_B.stages:
         log(f"[smoke] scene B stage {st}")
@@ -3188,7 +3454,6 @@ def run(dev, card: str) -> int:
     del qC32
 
     # ---- 6. scene B through the implicit operator ---------------------------
-    scB = make_scene(**SCENE_B)
     carried = hold_carried_operator(scB, dev)
     log(f"[smoke] scene B SchurQ built on the host, moved to the card: "
         f"kernel launched, bits repeat; (card, host) relative distance from "
@@ -3283,7 +3548,8 @@ def run(dev, card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    scD, exp_D, lifted_D, frame_cases = run_scene_d(dev, counts)
+    scD, exp_D, lifted_D, frame_cases, asm_D = run_scene_d(dev, counts)
+    asm_cases += asm_D
     log(f"[smoke] scene D: phase wall {time.perf_counter() - t0:.1f} s, "
         f"device memory peak "
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
@@ -3303,7 +3569,8 @@ def run(dev, card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    refine_cases = run_refine_d(dev, counts, scD, exp_D, lifted_D)
+    refine_cases, asm_D = run_refine_d(dev, counts, scD, exp_D, lifted_D)
+    asm_cases += asm_D
     log(f"[smoke] scene D refine: phase wall {time.perf_counter() - t0:.1f} "
         f"s, device memory peak "
         f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.3f} "
@@ -3366,11 +3633,14 @@ def run(dev, card: str) -> int:
                           for k, v in sharded.items()} | {
         "slot_sums": slot_stats["slot_sums"]}
     csr_row["floors"] = FLOORS
+    # launches: of the case's layout key in the main-path runs named (an
+    # assembly case: in the runs of its scene, under "runs")
     for key, cs, runs in (
             ("tail", tail_cases, ("D tail",)),
             ("refine", refine_cases, ("D refine",)),
             ("schurq_frame", frame_cases,
-             ("D implicit", "D implicit default tol"))):
+             ("D implicit", "D implicit default tol")),
+            ("assembly", asm_cases, None)):
         csr_row[key] = [{k: c[k] for k in ("tag", "E", "S", "D", "dtype",
                                            "longest", "n_long", "ms",
                                            "plain_ms", "library_ms")}
@@ -3380,7 +3650,7 @@ def run(dev, card: str) -> int:
                            "chain_floor_ms": c["chain_floor"],
                            "launches": sum(counts[r][
                                "sorted_segment_sum layouts"].get(c["key"], 0)
-                               for r in runs)}
+                               for r in runs or c["runs"])}
                         for c in cs]
     kernels = [
         dict(name="tcg_step", route="cuda",

@@ -539,26 +539,35 @@ def _tail_layout(layout, seed=0):
     return rng.integers(0, 7381, 297_217), 7381
 
 
-def test_segments_helper_is_index_add_in_edge_order():
-    """``Segments``: a stable permutation by id (none when sorted), then
-    the sorted sum: on the host the bits of ``index_add_`` over the edges
-    in their own order, any trailing shape, empty segments zero."""
+@pytest.mark.parametrize("S,hi", [(60, 50), (70_000, 69_990)])
+def test_segments_helper_is_index_add_in_edge_order(S, hi):
+    """``Segments``: a stable permutation by id (none when sorted; sorted
+    as 16-bit ids up to 65,536 segments, as int64 above), then the sorted
+    sum: on the host the bits of ``index_add_`` over the edges in their own
+    order, any trailing shape, empty segments zero.  An id outside
+    ``[0, S)``, which would wrap in 16 bits and leave the ids unsorted,
+    raises on either path."""
     rng = np.random.default_rng(1)
-    ids = rng.integers(0, 50, 3000)
+    ids = rng.integers(0, hi, 3000)
     ids[ids == 7] = 8                                   # an empty segment
     vals = torch.tensor(rng.normal(size=(3000, 3, 3)))
-    seg = ss.Segments(ids, 60, "cpu")
-    ref = torch.zeros(60, 3, 3, dtype=torch.float64).index_add_(
+    seg = ss.Segments(ids, S, "cpu")
+    assert torch.equal(seg.perm, torch.tensor(np.argsort(ids,
+                                                         kind="stable")))
+    ref = torch.zeros(S, 3, 3, dtype=torch.float64).index_add_(
         0, torch.tensor(ids), vals)
     assert torch.equal(seg.sum(vals), ref)
     assert seg.offsets.dtype == torch.int32
     assert seg.offsets.tolist() == np.searchsorted(
-        np.sort(ids), np.arange(61)).tolist()
-    s_sorted = ss.Segments(np.sort(ids), 60, "cpu")
+        np.sort(ids), np.arange(S + 1)).tolist()
+    s_sorted = ss.Segments(np.sort(ids), S, "cpu")
     assert s_sorted.perm is None and seg.perm is not None
     empty = ss.Segments(np.zeros(0, np.int64), 4, "cpu")
     assert torch.equal(empty.sum(torch.zeros(0, 6, dtype=torch.float64)),
                        torch.zeros(4, 6, dtype=torch.float64))
+    for bad in (-1, S):
+        with pytest.raises(ValueError, match="outside"):
+            ss.Segments(np.append(ids, bad), S, "cpu")
 
 
 @pytest.mark.cuda
@@ -929,7 +938,9 @@ def test_sharded_schurq_apply_on_card(kind, cuda_device):
 def test_kernels_launch_on_the_tensors_card(cuda_device):
     """A slab on the second card, launched while the first card is
     current, runs on its own card (the wrappers' device guard) and matches
-    the twin; one card cannot show it."""
+    the twin; a launch that needs a function attribute (a cluster of more
+    than 8 blocks, more than 48 KB of shared memory) runs on the second
+    card after the first; one card cannot show it."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards: a launch on the second card "
                     "while the first is current")
@@ -963,3 +974,88 @@ def test_kernels_launch_on_the_tensors_card(cuda_device):
             got = seg.sum(lv.to(dev))
             torch.cuda.synchronize(dev)
         assert got.device == dev and torch.equal(got.cpu(), want)
+    # tcg_step over a 16-block cluster (n = 6144) and tcg_step_dense at
+    # n = 512 (16 blocks; at o = 5 more than 48 KB of shared memory a
+    # block): the twin, then the first card, then the second with the first
+    # current; each card must allow the non-portable cluster size and the
+    # shared memory for itself
+    for n, o, dense in ((6144, 3, False), (512, 3, True), (512, 5, True)):
+        geometry = (ft.dense_geometry if dense else ft.step_geometry)(n, o)
+        assert geometry[0] == ft.MAX_CLUSTER
+        outs = []
+        for dev in (torch.device("cpu"), torch.device("cuda", 0), dev1):
+            C32, const, state, sc, cfgsc = _first_step(n, o, dev, dense)
+            with torch.cuda.device(0):
+                _launch(C32, const, state, sc, cfgsc)
+            assert sc.device == dev
+            outs.append([t.cpu() for t in (const["CWt"], *state, sc)])
+        plain, first, second = outs
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert torch.equal(second[-1][ft.S_ER:], plain[-1][ft.S_ER:])
+        torch.testing.assert_close(second[-1][:ft.S_ER], plain[-1][:ft.S_ER],
+                                   rtol=5e-3, atol=0.0)
+        for a, b in zip(second[:-1], plain[:-1]):
+            scale = max(1e-3, float(b.abs().max()))
+            torch.testing.assert_close(a, b, atol=5e-4 * scale, rtol=5e-3)
+
+
+# the dense assembly: scene A of chip_smoke.py (short frame sums), a scene
+# whose cameras see ~200 landmarks each (long frame sums), and one whose
+# edges come shuffled, a third of them twice (the repeat with half the
+# weight and a moved landmark; as tests/test_torch_assembly_segments.py),
+# whose repeated (frame, landmark) pairs are summed by pair
+def _assembly_scene(params):
+    sc = make_scene(**params)
+    return sc.weights, sc.edges, sc.landmarks
+
+
+def _repeated_pairs_scene(seed=4):
+    w, e, x = _assembly_scene(dict(n_cameras=30, n_points=120,
+                                   obs_per_camera=8, noise=0.1, seed=3))
+    rng = np.random.default_rng(seed)
+    k = rng.choice(len(e), size=len(e) // 3, replace=False)
+    perm = rng.permutation(len(e) + len(k))
+    return (np.concatenate([w, 0.5 * w[k]])[perm],
+            np.concatenate([e, e[k]])[perm],
+            np.concatenate([x, x[k] + 0.01])[perm])
+
+
+ASSEMBLY_SCENES = {
+    "scene A": lambda: _assembly_scene(dict(
+        n_cameras=120, n_points=400, obs_per_camera=10, noise=0.35, seed=1)),
+    "long frames": lambda: _assembly_scene(dict(
+        n_cameras=6, n_points=300, obs_per_camera=200, noise=0.1, seed=2)),
+    "repeated pairs": _repeated_pairs_scene}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+@pytest.mark.parametrize("scene", sorted(ASSEMBLY_SCENES))
+def test_dense_assembly_repeats_on_card(scene, precision, cuda_device):
+    """Two assemblies on the card give the same bits of C and Abar, their
+    sums by frame (D = 13) and by landmark launched once each an assembly,
+    and by pair (D = 4) where a pair repeats, and agree with the host's
+    assembly within the parity tolerance (1e-10 of the largest entry in
+    f64, 1e-4 in "mixed": the card's GEMMs and Cholesky solves round
+    differently)."""
+    from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
+
+    args = ASSEMBLY_SCENES[scene]()
+    repeats = len(np.unique(args[1], axis=0)) < len(args[1])
+    assert repeats == (scene == "repeated pairs")
+    before = dict(ss.sorted_segment_sum.layouts)
+    a = create_matrix_arrays(*args, precision=precision, device=cuda_device)
+    b = create_matrix_arrays(*args, precision=precision, device=cuda_device)
+    torch.cuda.synchronize()
+    sfx = "f64" if precision == "f64" else "f32"
+    for key, n in ((f"assembly frame {sfx} D=13", 2),
+                   (f"assembly landmark {sfx} D=1", 2),
+                   (f"assembly pair {sfx} D=4", 2 if repeats else 0)):
+        assert (ss.sorted_segment_sum.layouts.get(key, 0)
+                - before.get(key, 0)) == n
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    tol = 1e-10 if precision == "f64" else 1e-4
+    for got, want in zip(a, create_matrix_arrays(*args, precision=precision,
+                                                 device="cpu")):
+        torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))

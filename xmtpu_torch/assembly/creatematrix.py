@@ -6,21 +6,29 @@ Translations and landmark positions are eliminated in closed form (anchored
 Schur complement + Sherman-Morrison rank-1 anchor correction), producing the
 dense PSD cost matrix ``C`` and the recovery operator ``Abar``.
 
-Per-frame reductions are ``index_add_`` / ``index_put_(accumulate=True)``.
-On CUDA these use atomics, so the order of the sums varies from run to run:
-entries of C agree between runs to a few ulps of the largest entry, not
-bitwise.  The (N+M)x(N+M) translation/landmark block is applied implicitly.
+The per-frame and per-landmark reductions (``q2``, ``Q1``, ``V1`` by
+frame, ``q3`` by landmark) run through the hand-written
+``sorted_segment_sum`` (:class:`~xmtpu_torch.ops.segsum.Segments`, layouts
+``assembly frame`` and ``assembly landmark``), built once per assembly from
+the host ids: each segment's rows are added in edge order, the order of
+``index_add_`` on the host, so on the card C has the same bits on every
+run.  ``V3`` and ``V2`` are put at their (frame, landmark) positions
+without accumulation; where a pair repeats, its rows are first summed by
+pair the same way (``assembly pair``).  The (N+M)x(N+M)
+translation/landmark block is applied implicitly.
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.io.bin_format import save_matrix_to_bin
+from xmtpu_torch.ops.segsum import Segments
 
 
 def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
@@ -31,27 +39,69 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
                        torch.full_like(L, float("nan")))
 
 
-def _assemble(w, f, l, x, N: int, M: int, dtype=torch.float64):
-    """Core assembly.  w:(E,) weights, f/l:(E,) 0-based frame/landmark ids,
-    x:(E,3) lifted landmark observations, all on one device.
+class _EdgeSums(NamedTuple):
+    """The assembly's segment sums over the E edges, built once from the
+    host ids: by ``frame`` (N segments) and by ``landmark`` (M); by
+    ``pair`` (one segment for each distinct (frame, landmark) pair, in the
+    order of ``f * M + l``) where a pair repeats, else None; and ``at``,
+    the (frame, landmark) positions of the summed rows of V3 and V2."""
+
+    frame: Segments
+    landmark: Segments
+    pair: Optional[Segments]
+    at: "tuple[torch.Tensor, torch.Tensor]"
+
+
+def _edge_sums(f: np.ndarray, l: np.ndarray, N: int, M: int,
+               device) -> _EdgeSums:
+    """:class:`_EdgeSums` of the 0-based host ids ``f``/``l`` (E,) on
+    ``device``; reads nothing from the device."""
+    f = np.asarray(f, dtype=np.int64)
+    l = np.asarray(l, dtype=np.int64)
+    flat = f * M + l
+    # the pairs present, on a map of N * M bytes (V2 takes 24 N M on the
+    # device): a repeat leaves fewer pairs than edges
+    seen = np.zeros(N * M, dtype=bool)
+    seen[flat] = True
+    if np.count_nonzero(seen) == len(flat):
+        pair, pf, pl = None, f, l
+    else:
+        pairs, of_edge = np.unique(flat, return_inverse=True)
+        pair = Segments(of_edge.ravel(), len(pairs), device, "assembly pair")
+        pf, pl = pairs // M, pairs % M
+    return _EdgeSums(Segments(f, N, device, "assembly frame"),
+                     Segments(l, M, device, "assembly landmark"), pair,
+                     (torch.as_tensor(pf, device=device),
+                      torch.as_tensor(pl, device=device)))
+
+
+def _assemble(w, x, sums: _EdgeSums, N: int, M: int, dtype=torch.float64):
+    """Core assembly.  w:(E,) weights, x:(E,3) lifted landmark
+    observations, on the device of ``sums`` (:func:`_edge_sums` of the
+    edges' frame and landmark ids).
 
     ``dtype=torch.float32`` runs the heavy middle in f32 (~1e-6 relative C
     error).  Outputs are float64 either way."""
     dev = w.device
     w = w.to(dtype)
     x = x.to(dtype)
-
-    q2 = torch.zeros(N, dtype=dtype, device=dev).index_add_(0, f, w)
-    q3 = torch.zeros(M, dtype=dtype, device=dev).index_add_(0, l, w)
+    E = w.shape[0]
 
     wx = w[:, None] * x                                            # (E,3)
-    Q1 = torch.zeros((N, 3, 3), dtype=dtype, device=dev).index_add_(
-        0, f, wx[:, :, None] * x[:, None, :])                      # (N,3,3)
-    V1 = torch.zeros((N, 3), dtype=dtype, device=dev).index_add_(0, f, wx)
+    # the frame sums in one launch: [w | wx | wx x^T] -> [q2 | V1 | Q1]
+    by_frame = sums.frame.sum(torch.cat(
+        [w[:, None], wx, (wx[:, :, None] * x[:, None, :]).reshape(E, 9)],
+        dim=1))                                                    # (N,13)
+    q2, V1 = by_frame[:, 0], by_frame[:, 1:4]
+    Q1 = by_frame[:, 4:].reshape(N, 3, 3)
+    q3 = sums.landmark.sum(w)
+    by_pair = torch.cat([w[:, None], wx], dim=1)                   # (E,4)
+    if sums.pair is not None:
+        by_pair = sums.pair.sum(by_pair)
     V3 = torch.zeros((N, M), dtype=dtype, device=dev).index_put_(
-        (f, l), w, accumulate=True)
+        sums.at, by_pair[:, 0])
     V2 = torch.zeros((N, M, 3), dtype=dtype, device=dev).index_put_(
-        (f, l), wx, accumulate=True).permute(0, 2, 1)              # (N,3,M)
+        sums.at, by_pair[:, 1:]).permute(0, 2, 1)                  # (N,3,M)
 
     inv_sqrt_q3 = 1.0 / torch.sqrt(q3)
     V3_bar = V3[1:]                                                # (N-1, M)
@@ -132,21 +182,20 @@ def create_matrix_arrays(weights, edges, landmarks, precision: str = "f64",
     edges = np.asarray(edges)
     weights = np.asarray(weights, dtype=np.float64).ravel()
     landmarks = np.asarray(landmarks, dtype=np.float64)
-    f = torch.as_tensor(edges[:, 0] - 1, dtype=torch.int64, device=dev)
-    l = torch.as_tensor(edges[:, 1] - 1, dtype=torch.int64, device=dev)
     N = int(edges[:, 0].max())
     M = int(edges[:, 1].max())
+    sums = _edge_sums(edges[:, 0] - 1, edges[:, 1] - 1, N, M, dev)
     w = torch.as_tensor(weights, dtype=torch.float64, device=dev)
     x = torch.as_tensor(landmarks, dtype=torch.float64, device=dev)
     dtype = torch.float32 if precision == "mixed" else torch.float64
-    C, Abar, S = _assemble(w, f, l, x, N, M, dtype=dtype)
+    C, Abar, S = _assemble(w, x, sums, N, M, dtype=dtype)
     if dtype == torch.float32:
         # f32 breakdown anywhere — Cholesky NaNs (S) or overflow in C/Abar —
         # redoes the assembly in f64 (one batched host read)
         ok = bool(torch.isfinite(C).all() & torch.isfinite(Abar).all()
                   & torch.isfinite(S))
         if not ok:
-            C, Abar, S = _assemble(w, f, l, x, N, M)
+            C, Abar, S = _assemble(w, x, sums, N, M)
     if float(S) == 0.0:
         raise ValueError("S is 0")  # anchor guard (creatematrix.py:301-302)
     return C, Abar

@@ -199,6 +199,9 @@ struct StepCap {
   static constexpr int threads = DENSE ? 256 : (MAXO <= 8 ? 512 : 256);
 };
 constexpr int MAX_CLUSTER = 16;  // blocks of one tcg_step launch
+// devices whose launch state launch_step remembers (a device past them
+// sets its attributes and checks its fit at every launch)
+constexpr int MAX_DEVICES = 64;
 
 // After block_sum: v holds this block's partials (the same in every thread).
 // On return v holds the sums over every block of the cluster, added in
@@ -666,6 +669,24 @@ __global__ void __launch_bounds__(StepCap<MAXO, DENSE>::threads)
   if (split) cg::this_cluster().sync();
 }
 
+// What launch_step has set up on one device for one instantiation: a CUDA
+// function attribute holds for the device current when it was set, so
+// each device keeps its own (the dynamic shared memory allowed so far, the
+// non-portable cluster sizes allowed, and the last few geometries checked
+// against the card: blocks, threads, shared memory, and whether a cluster
+// of them fits).
+struct Fit {
+  int blocks, threads;
+  size_t smem;
+  bool ok;
+};
+struct LaunchState {
+  size_t allowed;
+  bool nonportable;
+  Fit seen[16];
+  int nseen;
+};
+
 // One tcg_step launch of `blocks` blocks of `threads` threads (the geometry
 // of ops/fused_tcg.py step_geometry, or dense_geometry for DENSE): one block,
 // a plain launch; several, one thread-block cluster.  A cluster the card
@@ -678,42 +699,38 @@ int launch_step(const StepArgs& a, int blocks, int threads,
       threads > StepCap<MAXO, DENSE>::threads || blocks < 1 ||
       blocks > MAX_CLUSTER)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  static LaunchState states[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  LaunchState fresh = {};
+  LaunchState& st = dev < MAX_DEVICES ? states[dev] : fresh;
   size_t smem = 0;
   if constexpr (DENSE) {
     if (a.C == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     smem = sizeof(float) *
            dense_smem_floats(a.n, a.o, (a.n + blocks - 1) / blocks, threads);
-    // per instantiation: raise the dynamic shared-memory cap as far as a
-    // launch needs (a size the card refuses fails here)
-    static size_t allowed = 48 * 1024;
-    if (smem > allowed) {
-      cudaError_t err = cudaFuncSetAttribute(
+    // raise the dynamic shared-memory cap as far as a launch needs (a size
+    // the card refuses fails here)
+    if (smem > 48 * 1024 && smem > st.allowed) {
+      err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      allowed = smem;
+      st.allowed = smem;
     }
   }
   if (blocks == 1) {
     kern<<<1, threads, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  // per instantiation: the non-portable sizes (above 8) are allowed once,
-  // and each (blocks, threads, shared memory) is checked against the card
-  // once (the last few geometries are remembered)
-  static bool nonportable = false;
-  struct Fit {
-    int blocks, threads;
-    size_t smem;
-    bool ok;
-  };
-  static Fit seen[16];
-  static int nseen = 0;
-  if (!nonportable) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // the non-portable sizes (above 8) are allowed once, and each (blocks,
+  // threads, shared memory) is checked against the card once
+  if (!st.nonportable) {
+    err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    nonportable = true;
+    st.nonportable = true;
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -728,20 +745,20 @@ int launch_step(const StepArgs& a, int blocks, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const Fit* fit = nullptr;
-  for (int k = 0; k < nseen && k < 16; ++k)
-    if (seen[k].blocks == blocks && seen[k].threads == threads &&
-        seen[k].smem == smem)
-      fit = &seen[k];
+  for (int k = 0; k < st.nseen && k < 16; ++k)
+    if (st.seen[k].blocks == blocks && st.seen[k].threads == threads &&
+        st.seen[k].smem == smem)
+      fit = &st.seen[k];
   if (fit == nullptr) {
     int clusters = 0;
-    cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
-    Fit& slot = seen[nseen++ % 16];
+    Fit& slot = st.seen[st.nseen++ % 16];
     slot = Fit{blocks, threads, smem, clusters > 0};
     fit = &slot;
   }
   if (!fit->ok) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  err = cudaLaunchKernelEx(&cfg, kern, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -410,18 +410,26 @@ class Segments:
     of the mapper's tail stages), through :func:`sorted_segment_sum`.
 
     Built once per solve on the host: one stable ``np.argsort`` of ``ids``
-    (skipped when they are already sorted), the sorted ids and their CSR
+    (skipped when they are already sorted; of a 16-bit copy where
+    ``num_segments`` allows, which numpy sorts by radix: the same
+    permutation), the sorted ids and their CSR
     offsets with their host plan (:func:`planned_offsets`, named
     ``layout``), all on ``device``.  :meth:`sum` gathers the rows through
     that permutation and sums each segment in the callers' edge order, so
     on the card the bits are the CPU twin's, the same on every run.  Rows
-    of any trailing shape are summed as flat rows of width ``D``.
+    of any trailing shape are summed as flat rows of width ``D``.  An id
+    outside ``[0, num_segments)`` raises ``ValueError`` here, on every
+    device (the twin's ``index_add_`` would raise only at the sum).
     """
 
     def __init__(self, ids, num_segments: int, device,
                  layout: str = "unnamed"):
         ids = np.asarray(ids, dtype=np.int64)
-        perm = np.argsort(ids, kind="stable")
+        if len(ids) and not (ids.min() >= 0 and ids.max() < num_segments):
+            raise ValueError(f"Segments ({layout}): ids in [{ids.min()}, "
+                             f"{ids.max()}], outside [0, {num_segments})")
+        perm = np.argsort(ids.astype(np.uint16) if num_segments <= 1 << 16
+                          else ids, kind="stable")
         dev = torch.device(device)
         self.num_segments = int(num_segments)
         self.perm = (None if np.array_equal(perm, np.arange(len(ids)))
