@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.ops import manifold as mf
+from xmtpu_torch.utils.timer import host_reads
 
 # scalar-carry slots (sc, shape (NS,)) and config slots (cfg, shape (NC,))
 S_RDOTR, S_RDOTZ, S_VDOTV, S_VDOTP, S_PDOTP, S_ER, S_DONE, S_I = range(8)
@@ -461,6 +462,13 @@ def dense_matrix(qmul, n: int):
     return C.to(torch.float32).contiguous()
 
 
+def _read_carry(sc: torch.Tensor) -> list:
+    """The scalar carry on the host: the loop's one read every
+    ``FLAG_EVERY`` launches (counted in ``utils.timer.host_reads``)."""
+    host_reads.n += 1
+    return sc.tolist()
+
+
 def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
                     lam, cfg, minv):
     """Drop-in replacement for ``trust_region._inner_tcg`` on the f32 +
@@ -487,7 +495,7 @@ def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
             W = mf.flatten(from_t(pR * s_ex_t + Rt * ps, n, o))
             CWt.copy_(to_t(mf.unflatten(2.0 * qmul(W))))
             tcg_step(*step_args, max_inner, work=work)
-        carry = sc.tolist()
+        carry = _read_carry(sc)
         if carry[S_DONE] != 0.0 or carry[S_I] >= max_inner:
             break
 

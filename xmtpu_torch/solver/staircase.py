@@ -28,6 +28,7 @@ for the Cholesky probe, and its f32 cast is made slab by slab.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import NamedTuple, Optional
@@ -40,6 +41,8 @@ from xmtpu_torch.io.bin_format import load_matrix_from_bin, save_matrix_to_bin
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.solver import trust_region as tr
 from xmtpu_torch.solver.certificate import certify
+from xmtpu_torch.utils.timer import (host_reads, max_memory_allocated,
+                                     memory_allocated, span, spanned)
 
 STATUS_CERTIFIED = 1
 STATUS_MAX_RANK = 2
@@ -61,9 +64,46 @@ class SolveResult(NamedTuple):
     lam_min: float
     outer_iters: int
     total_inner: int
-    # per-rank stage log: wall clock (stage_s solve, cert_s certificate),
-    # iteration counts and the certificate verdict
+    # per-rank stage log: wall clock (stage_s solve, cert_s certificate:
+    # the spans xm.stage and xm.cert enclose stage_s + cert_s and cert_s),
+    # iteration counts, the certificate verdict, host_reads (the trust
+    # region's device-to-host reads, utils.timer.host_reads) and, read only
+    # while spans are on and on a card, mem_base_bytes (allocated at the
+    # solve's start), peak_bytes and cert_peak_bytes (the card's peak
+    # allocation at the end of the rank's trust region and of its
+    # certificate)
     stages: tuple = ()
+
+
+class _RankLog:
+    """One rank's counters for ``SolveResult.stages``: the trust region's
+    host reads, and while spans are on the card's memory (``mem_base`` is
+    the solve's, None when not read)."""
+
+    def __init__(self, dev, mem_base):
+        self.dev = dev
+        self.reads0 = host_reads.n
+        self.mem = {} if mem_base is None else {"mem_base_bytes": mem_base}
+
+    def _peak(self, key):
+        peak = max_memory_allocated(self.dev)
+        if peak is not None:
+            self.mem[key] = peak
+
+    @contextlib.contextmanager
+    def cert(self):
+        """The span ``xm.cert``; the trust region ended where the rank's
+        first certificate starts."""
+        if "peak_bytes" not in self.mem:
+            self._peak("peak_bytes")
+        with span("xm.cert"):
+            yield
+        self._peak("cert_peak_bytes")
+
+    def counters(self) -> dict:
+        if "peak_bytes" not in self.mem:
+            self._peak("peak_bytes")
+        return dict(host_reads=host_reads.n - self.reads0, **self.mem)
 
 
 def _fail_state(R0, s_ex0) -> tr.TRState:
@@ -79,7 +119,8 @@ def _stage_certify_fused(C, R0, s_ex0, lam, gradtol, gradtol32, delta_bar,
                          bound, cfg: tr.TRConfig, kmax: int, C32=None,
                          cfg32: Optional[tr.TRConfig] = None, kmax32: int = 0,
                          inner32: bool = False, with_cert: bool = True,
-                         with_escape: bool = False, esc_v=None, step0=1.0):
+                         with_escape: bool = False, esc_v=None, step0=1.0,
+                         *, log: _RankLog):
     """One rank: (escape linesearch ->) (f32 phase ->) f64 stage -> dense
     'auto' certificate, the certificate only when the stage finished inside
     ``kmax``.  Returns ``(st, st32, sR, Z, dual, psd, lam_min_est,
@@ -124,17 +165,20 @@ def _stage_certify_fused(C, R0, s_ex0, lam, gradtol, gradtol32, delta_bar,
     sR = _scaled_factor(st.R, st.s_ex)
     if not with_cert or not (st.done and ls_ok):
         return (st, st32, sR) + (None,) * 6 + (0.0,)
-    t0 = time.perf_counter()
-    Z, dual, psd, lme, lmlb, v_inv = _build_z_dual_psd(C.C, sR, lam, bound)
-    return (st, st32, sR, Z, dual, psd, lme, lmlb, v_inv,
-            time.perf_counter() - t0)
+    with log.cert():
+        t0 = time.perf_counter()
+        Z, dual, psd, lme, lmlb, v_inv = _build_z_dual_psd(C.C, sR, lam,
+                                                           bound)
+        cert_s = time.perf_counter() - t0
+    return (st, st32, sR, Z, dual, psd, lme, lmlb, v_inv, cert_s)
 
 
 def _stage_fused(Cq, C32q, R0, s_ex0, lam, gradtol, max_time, verbose,
                  precision: str, bound: float, v0,
                  inner_f32: bool = False, with_cert: bool = True,
                  escape_dir=None, linesearch_step: float = 0.0,
-                 chunk: int = 100, checkpoint_path=None, ckpt_meta=None):
+                 chunk: int = 100, checkpoint_path=None, ckpt_meta=None,
+                 *, log: _RankLog):
     """Run one staircase rank through :func:`_stage_certify_fused`.
     Returns ``(res, scalars, cert, cert_s)``; ``cert`` is None when the
     stage did not finish inside its chunk (the caller certifies
@@ -159,7 +203,7 @@ def _stage_fused(Cq, C32q, R0, s_ex0, lam, gradtol, max_time, verbose,
         Cq, R0, s_ex0, lam, gradtol, gradtol32, delta_bar, bound, cfg,
         cfg.chunk, C32q, cfg32, kmax32, inner32=inner_f32,
         with_cert=with_cert, with_escape=with_escape, esc_v=escape_dir,
-        step0=float(linesearch_step))
+        step0=float(linesearch_step), log=log)
     if st32 is not None:
         k32, i32, done32 = st32.k, st32.total_inner, st32.done
     else:
@@ -220,10 +264,12 @@ def _stage_fused(Cq, C32q, R0, s_ex0, lam, gradtol, max_time, verbose,
     scal = (loss_v, st.done_reason, st.k + k32, st.total_inner + i32)
     if not with_cert:
         return res, scal, None, 0.0
-    t0 = time.perf_counter()
-    certified, v, lam_min, gap, dual_out = cert_mod.finish_auto_certificate(
-        Z, n, bound, loss_v, dual, psd, lme, lmlb, v_inv, v0=v0)
-    cert_s += time.perf_counter() - t0
+    with log.cert():
+        t0 = time.perf_counter()
+        certified, v, lam_min, gap, dual_out = \
+            cert_mod.finish_auto_certificate(Z, n, bound, loss_v, dual, psd,
+                                             lme, lmlb, v_inv, v0=v0)
+        cert_s += time.perf_counter() - t0
     if verbose:
         print(f"[certify] primal={loss_v:.6e} dual={dual_out:.6e} "
               f"gap={gap:.3e} lam_min={lam_min:.3e} "
@@ -260,6 +306,7 @@ def _stage(C, R0, s_ex0, lam, gradtol, max_time, escape_dir, verbose,
     return res
 
 
+@spanned("xm.solve")
 def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                  max_time: float = 1000.0, s0_ex: Optional[np.ndarray] = None,
                  rank3_only: bool = False, verbose: bool = True,
@@ -299,6 +346,7 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                                                tr_state_from_checkpoint)
 
     dev = resolve_device(device)
+    mem_base = memory_allocated(dev)
     Cq = as_qop(C, device=dev)
     dense = isinstance(Cq, DenseQ)
     if dense and Cq.C.dtype != torch.float64:
@@ -355,96 +403,107 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
                 else None)
     stages = []
     while o <= max_rank:
-        t_stage0 = time.perf_counter()
-        fused_ok = dense and precision in ("f64", "mixed")
-        cert_pre, cert_s = None, 0.0
-        meta = dict(rank=o, gradtol=gradtol, lam=float(lam))
-        if mid_resume is not None:
-            # finish the interrupted rank from its chunk-boundary state
-            st = tr_state_from_checkpoint(mid_resume, Q=stage_q, device=dev)
-            dim = n * (3 * o - 6) + n - 1
-            delta_bar = float(np.sqrt(dim))
-            cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32,
-                              chunk=chunk_n)
-            res = tr.continue_chunks(
-                stage_q, st, mid_resume.lam, gradtol, delta_bar, cfg,
-                Q32=(C32q if rows else stage_q32) if inner_f32 else None,
-                k_done=mid_resume.k_done,
-                deadline=time.monotonic() + max_time,
-                checkpoint_path=mid_path, ckpt_meta=meta)
-            primal_v, reason_v = res.primal, res.done_reason
-            outer_v, inner_v = res.outer_iters, res.total_inner
-            if verbose:
-                print(f"[xm] rank {o} (resumed at outer "
-                      f"{mid_resume.k_done}): primal={primal_v:.6e}")
-            mid_resume = None
-        elif fused_ok:
-            res, scal, cert_pre, cert_s = _stage_fused(
-                Cq, C32q, R0, s_ex, lam, gradtol, max_time, verbose,
-                precision, bound, prev_escape_v, inner_f32=inner_f32,
-                with_cert=not rank3_only, escape_dir=escape_dir,
-                linesearch_step=(1.0 if escape_dir is not None else 0.0),
-                chunk=chunk_n, checkpoint_path=mid_path, ckpt_meta=meta)
-            primal_v, reason_v, outer_v, inner_v = scal
-        else:
-            res = _stage(stage_q, R0, s_ex, lam, gradtol, max_time,
-                         escape_dir, verbose, precision, inner_f32,
-                         Q32=C32q if rows else stage_q32,
-                         checkpoint_path=mid_path, ckpt_meta=meta,
-                         stop_on_collapse=stage_q is not Cq, chunk=chunk_n)
-            if stage_q is not Cq and res.done_reason != tr.DONE_LINESEARCH_FAIL:
-                # the fast operator's absolute noise (~eta ||sR||^2) shows
-                # against a near-zero primal (it can even read negative):
-                # re-read the objective through the EXACT operator.  Only
-                # the linesearch-fail sentinel keeps the stage's primal
-                # (guarded by done_reason, not by sign)
-                res = res._replace(primal=float(mf.objective(
-                    Cq.apply, res.R, res.s_ex, float(lam))))
-            primal_v, reason_v = res.primal, res.done_reason
-            outer_v, inner_v = res.outer_iters, res.total_inner
-        outer += int(outer_v)
-        inner += int(inner_v)
-        # the stage call's own certificate is reported under cert_s
-        t_stage = time.perf_counter() - t_stage0 - cert_s
+        with span("xm.stage"):
+            # one rank, from the clock of stage_s through its certificate
+            t_stage0 = time.perf_counter()
+            log = _RankLog(dev, mem_base)
+            fused_ok = dense and precision in ("f64", "mixed")
+            cert_pre, cert_s = None, 0.0
+            meta = dict(rank=o, gradtol=gradtol, lam=float(lam))
+            if mid_resume is not None:
+                # finish the interrupted rank from its chunk-boundary state
+                st = tr_state_from_checkpoint(mid_resume, Q=stage_q,
+                                              device=dev)
+                dim = n * (3 * o - 6) + n - 1
+                delta_bar = float(np.sqrt(dim))
+                cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32,
+                                  chunk=chunk_n)
+                res = tr.continue_chunks(
+                    stage_q, st, mid_resume.lam, gradtol, delta_bar, cfg,
+                    Q32=(C32q if rows else stage_q32) if inner_f32 else None,
+                    k_done=mid_resume.k_done,
+                    deadline=time.monotonic() + max_time,
+                    checkpoint_path=mid_path, ckpt_meta=meta)
+                primal_v, reason_v = res.primal, res.done_reason
+                outer_v, inner_v = res.outer_iters, res.total_inner
+                if verbose:
+                    print(f"[xm] rank {o} (resumed at outer "
+                          f"{mid_resume.k_done}): primal={primal_v:.6e}")
+                mid_resume = None
+            elif fused_ok:
+                res, scal, cert_pre, cert_s = _stage_fused(
+                    Cq, C32q, R0, s_ex, lam, gradtol, max_time, verbose,
+                    precision, bound, prev_escape_v, inner_f32=inner_f32,
+                    with_cert=not rank3_only, escape_dir=escape_dir,
+                    linesearch_step=(1.0 if escape_dir is not None else 0.0),
+                    chunk=chunk_n, checkpoint_path=mid_path, ckpt_meta=meta,
+                    log=log)
+                primal_v, reason_v, outer_v, inner_v = scal
+            else:
+                res = _stage(stage_q, R0, s_ex, lam, gradtol, max_time,
+                             escape_dir, verbose, precision, inner_f32,
+                             Q32=C32q if rows else stage_q32,
+                             checkpoint_path=mid_path, ckpt_meta=meta,
+                             stop_on_collapse=stage_q is not Cq, chunk=chunk_n)
+                if (stage_q is not Cq
+                        and res.done_reason != tr.DONE_LINESEARCH_FAIL):
+                    # the fast operator's absolute noise (~eta ||sR||^2) shows
+                    # against a near-zero primal (it can even read negative):
+                    # re-read the objective through the EXACT operator.  Only
+                    # the linesearch-fail sentinel keeps the stage's primal
+                    # (guarded by done_reason, not by sign)
+                    res = res._replace(primal=float(mf.objective(
+                        Cq.apply, res.R, res.s_ex, float(lam))))
+                primal_v, reason_v = res.primal, res.done_reason
+                outer_v, inner_v = res.outer_iters, res.total_inner
+            outer += int(outer_v)
+            inner += int(inner_v)
+            # the stage call's own certificate is reported under cert_s
+            t_stage = time.perf_counter() - t_stage0 - cert_s
 
-        if float(primal_v) < 0 and int(reason_v) == tr.DONE_LINESEARCH_FAIL:
-            status = STATUS_LINESEARCH_FAIL
-            stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
-                               outer=int(outer_v), inner=int(inner_v),
-                               reason=int(reason_v), primal=float(primal_v),
-                               certified=False))
-            break
+            if (float(primal_v) < 0
+                    and int(reason_v) == tr.DONE_LINESEARCH_FAIL):
+                status = STATUS_LINESEARCH_FAIL
+                stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
+                                   outer=int(outer_v), inner=int(inner_v),
+                                   reason=int(reason_v),
+                                   primal=float(primal_v), certified=False,
+                                   **log.counters()))
+                break
 
-        R_cur, s_cur, primal = res.R, res.s_ex, float(primal_v)
-        if int(reason_v) == tr.DONE_GRADTOL:
-            gradtol /= 10.0  # the reference's pass-by-reference tolerance
+            R_cur, s_cur, primal = res.R, res.s_ex, float(primal_v)
+            if int(reason_v) == tr.DONE_GRADTOL:
+                gradtol /= 10.0  # the reference's pass-by-reference tolerance
 
-        if rank3_only:
-            status = STATUS_MAX_RANK
-            stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
-                               outer=int(outer_v), inner=int(inner_v),
-                               reason=int(reason_v), primal=float(primal_v),
-                               certified=False))
-            break
+            if rank3_only:
+                status = STATUS_MAX_RANK
+                stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
+                                   outer=int(outer_v), inner=int(inner_v),
+                                   reason=int(reason_v),
+                                   primal=float(primal_v), certified=False,
+                                   **log.counters()))
+                break
 
-        if cert_pre is not None:
-            cert = cert_pre       # the stage ran the certificate (fused=True)
-        else:
-            t_cert0 = time.perf_counter()
-            cert = certify(Cq, _scaled_factor(R_cur, s_cur), lam, res.primal,
-                           verbose=verbose, v0=prev_escape_v, fast="auto",
-                           device=dev)
-            cert_s = time.perf_counter() - t_cert0
-        gap, lam_min = float(cert.gap), float(cert.lam_min)
-        stages.append(dict(
-            rank=o, stage_s=t_stage, cert_s=cert_s,
-            fused=cert_pre is not None,
-            # the deciding branch of the matvec flow; "dense" for the
-            # Cholesky probe on the whole matrix
-            cert_path=(cert.info or {}).get("path", "dense"),
-            outer=int(outer_v),
-            inner=int(inner_v), reason=int(reason_v), primal=float(primal_v),
-            certified=bool(cert.certified), gap=gap, lam_min=lam_min))
+            if cert_pre is not None:
+                cert = cert_pre   # the stage ran the certificate (fused=True)
+            else:
+                with log.cert():
+                    t_cert0 = time.perf_counter()
+                    cert = certify(Cq, _scaled_factor(R_cur, s_cur), lam,
+                                   res.primal, verbose=verbose,
+                                   v0=prev_escape_v, fast="auto", device=dev)
+                    cert_s = time.perf_counter() - t_cert0
+            gap, lam_min = float(cert.gap), float(cert.lam_min)
+            stages.append(dict(
+                rank=o, stage_s=t_stage, cert_s=cert_s,
+                fused=cert_pre is not None,
+                # the deciding branch of the matvec flow; "dense" for the
+                # Cholesky probe on the whole matrix
+                cert_path=(cert.info or {}).get("path", "dense"),
+                outer=int(outer_v),
+                inner=int(inner_v), reason=int(reason_v),
+                primal=float(primal_v), certified=bool(cert.certified),
+                gap=gap, lam_min=lam_min, **log.counters()))
 
         if cert.certified:
             status = STATUS_CERTIFIED

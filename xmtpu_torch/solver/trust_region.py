@@ -27,6 +27,7 @@ import torch
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.ops.qop import as_qop
+from xmtpu_torch.utils.timer import host_reads, span, spanned
 
 # done_reason codes
 RUNNING = 0
@@ -149,7 +150,8 @@ def print_history(hist, k_lo: int, k_hi: int) -> None:
 
 def _fetch(*xs, dt):
     """Several 0-d device tensors -> host scalars of numpy type ``dt``, in
-    one transfer."""
+    one transfer (counted in ``utils.timer.host_reads``)."""
+    host_reads.n += 1
     return tuple(dt(v) for v in torch.stack(xs).tolist())
 
 
@@ -300,9 +302,10 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
                            done_reason=DONE_GRADTOL)
 
     minv = None if Cdiag is None else _build_minv(Cdiag, st.s_ex, lam)
-    vR, vs, hvR, hvs, endreason, iters = _inner_tcg(
-        qmul_inner, st.R, st.s_ex, CsR, egR, egs, pgR, pgs, gradnorm,
-        st.delta, lam, cfg, minv=minv)
+    with span("xm.tr.tcg"):
+        vR, vs, hvR, hvs, endreason, iters = _inner_tcg(
+            qmul_inner, st.R, st.s_ex, CsR, egR, egs, pgR, pgs, gradnorm,
+            st.delta, lam, cfg, minv=minv)
     total_inner = st.total_inner + iters
 
     # <v, Hv>/2 + <v, g> folded into ONE metric reduction pass
@@ -378,25 +381,31 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
                    done_reason, QsR_out, cc_out, accepts_out, hist_out)
 
 
+_CHUNK_SPAN = {torch.float32: "xm.tr.chunk.f32",
+               torch.float64: "xm.tr.chunk.f64"}
+
+
 def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
                kmax: int, Q32=None) -> TRState:
-    """Outer iterations until done or ``st.k >= kmax``."""
-    qop = as_qop(Q)
-    qmul = qop.apply
-    Cdiag = qop.diag_blocks() if cfg.precondition else None
-    qmul_inner = None
-    if Q32 is not None:
-        work_dtype = st.R.dtype
-        q32 = as_qop(Q32)
+    """Outer iterations until done or ``st.k >= kmax``, in the span
+    ``xm.tr.chunk.f32`` or ``xm.tr.chunk.f64`` of the working dtype."""
+    with span(_CHUNK_SPAN[st.R.dtype]):
+        qop = as_qop(Q)
+        qmul = qop.apply
+        Cdiag = qop.diag_blocks() if cfg.precondition else None
+        qmul_inner = None
+        if Q32 is not None:
+            work_dtype = st.R.dtype
+            q32 = as_qop(Q32)
 
-        def qmul_inner(Y):
-            return q32.apply(Y.to(torch.float32)).to(work_dtype)
+            def qmul_inner(Y):
+                return q32.apply(Y.to(torch.float32)).to(work_dtype)
 
-    dt = np_dtype(st.R.dtype)
-    lam, gradtol, delta_bar = dt(lam), dt(gradtol), dt(delta_bar)
-    while not st.done and st.k < kmax:
-        st = _outer_step(qmul, st, lam, gradtol, delta_bar, cfg, Cdiag,
-                         qmul_inner)
+        dt = np_dtype(st.R.dtype)
+        lam, gradtol, delta_bar = dt(lam), dt(gradtol), dt(delta_bar)
+        while not st.done and st.k < kmax:
+            st = _outer_step(qmul, st, lam, gradtol, delta_bar, cfg, Cdiag,
+                             qmul_inner)
     return st
 
 
@@ -423,6 +432,7 @@ def _init_state(Q, R0, s_ex0, lam, delta_bar, cfg: TRConfig,
     )
 
 
+@spanned("xm.tr.escape")
 def _escape_linesearch(Q, R, s_ex, v_scaled, step0, lam, cfg: TRConfig):
     """Armijo-halving linesearch along the saddle-escape direction, placed in
     the last frame column, with a negative step.  Returns ``(R_new, f_new,
