@@ -42,6 +42,8 @@ ctypes call).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -294,16 +296,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The kernels' library, loaded and typed once a process (``_build.load``
+    hashes the sources to find it)."""
     from xmtpu_torch import _build
 
     lib = _build.load("fused_tcg")
-    if not getattr(lib, "_xm_typed", False):
-        lib.xm_tcg_step.argtypes = [_P] * 21 + [_I] * 5 + [_P]
-        lib.xm_tcg_step.restype = _I
-        lib.xm_tcg_step_dense.argtypes = [_P] * 22 + [_I] * 5 + [_P]
-        lib.xm_tcg_step_dense.restype = _I
-        lib._xm_typed = True
+    lib.xm_tcg_step.argtypes = [_P] * 21 + [_I] * 5 + [_P]
+    lib.xm_tcg_step.restype = _I
+    lib.xm_tcg_step_dense.argtypes = [_P] * 22 + [_I] * 5 + [_P]
+    lib.xm_tcg_step_dense.restype = _I
     return lib
 
 
@@ -336,7 +339,7 @@ _STEP_NAMES = ("Rt", "s_ex_t", "sfree", "inv_s2", "egs_t", "Segrt", "CsRt",
 
 def _step_ptrs(what: str, args, work):
     """Checked pointers of the twenty ``tcg_step`` arguments and ``work``
-    (allocated when None), with ``(n, o, device)``."""
+    (allocated when None), with ``(n, o, device, work)``."""
     Rt = args[0]
     three_o, n = Rt.shape
     o = three_o // 3
@@ -353,27 +356,63 @@ def _step_ptrs(what: str, args, work):
     ptrs = [_check(nm, t, sh, dev) for nm, t, sh in zip(_STEP_NAMES, args,
                                                          shapes)]
     ptrs.append(_check("work", work, ((6 * o + 1), n), dev))
-    return ptrs, n, o, dev
+    return ptrs, n, o, dev, work
+
+
+class Checked(NamedTuple):
+    """One set of launch arguments with their checked pointers
+    (:func:`check_step`), for a loop that launches on the same tensors
+    again and again: the checks run once, not once a launch."""
+    args: tuple            # the twenty tcg_step arguments
+    C: "torch.Tensor | None"   # the dense variant's matrix
+    work: torch.Tensor
+    ptrs: list             # C's first for the dense variant, then work's last
+    n: int
+    o: int
+    dev: torch.device
+
+    def holds(self, args, C, work) -> bool:
+        return (C is self.C and (work is None or work is self.work)
+                and all(a is b for a, b in zip(args, self.args)))
+
+
+def check_step(args, work=None, C=None) -> Checked:
+    """Checks the twenty ``tcg_step`` arguments ``args`` (and the dense
+    variant's ``C``) once; ``work`` is allocated when None."""
+    what = "tcg_step" if C is None else "tcg_step_dense"
+    ptrs, n, o, dev, work = _step_ptrs(what, args, work)
+    if C is not None:
+        ptrs.insert(0, _check("C", C, (3 * n, 3 * n), dev))
+    return Checked(tuple(args), C, work, ptrs, n, o, dev)
+
+
+def _checked(what: str, args, C, work, checked) -> Checked:
+    if checked is None:
+        return check_step(args, work, C)
+    if not checked.holds(args, C, work):
+        raise ValueError(f"{what}: ``checked`` was made for other tensors")
+    return checked
 
 
 def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
              CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, max_inner: int,
-             work=None):
+             work=None, checked: "Checked | None" = None):
     """One fused inner iteration (see :func:`tcg_step_plain`), launched at
     :func:`step_geometry` ``(n, o)``.  ``work`` is optional ``((6o+1), n)``
-    f32 scratch for the kernel.  A cluster the card cannot schedule
-    raises."""
+    f32 scratch for the kernel; ``checked``, from :func:`check_step` on
+    these very tensors, skips the argument checks.  A cluster the card
+    cannot schedule raises."""
     args = (Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
             CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg)
     if _on_cpu(*args):
         tcg_step_plain(*args, max_inner)
         return
-    ptrs, n, o, dev = _step_ptrs("tcg_step", args, work)
-    blocks, threads = step_geometry(n, o)
-    with torch.cuda.device(dev):    # ctypes launches on the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().xm_tcg_step(*ptrs, n, o, int(max_inner), blocks, threads,
-                                stream)
+    c = _checked("tcg_step", args, None, work, checked)
+    blocks, threads = step_geometry(c.n, c.o)
+    with torch.cuda.device(c.dev):  # ctypes launches on the current device
+        stream = torch.cuda.current_stream(c.dev).cuda_stream
+        rc = _lib().xm_tcg_step(*c.ptrs, c.n, c.o, int(max_inner), blocks,
+                                threads, stream)
     _raise_on(rc, "tcg_step")
     tcg_step.launches += 1
 
@@ -383,22 +422,23 @@ tcg_step.launches = 0
 
 def tcg_step_dense(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
                    inv_ms, CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg,
-                   max_inner: int, work=None):
+                   max_inner: int, work=None,
+                   checked: "Checked | None" = None):
     """One fused inner iteration of the dense variant, the product
     ``CW = 2 C W`` included (see :func:`tcg_step_dense_plain`; ``CWt``
     receives it), launched at :func:`dense_geometry` ``(n, o)``.  ``C`` is
-    the row-major f32 (3n, 3n)."""
+    the row-major f32 (3n, 3n); ``work`` and ``checked`` as for
+    :func:`tcg_step`."""
     args = (Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
             CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg)
     if _on_cpu(C, *args):
         tcg_step_dense_plain(C, *args, max_inner)
         return
-    ptrs, n, o, dev = _step_ptrs("tcg_step_dense", args, work)
-    c_ptr = _check("C", C, (3 * n, 3 * n), dev)
-    blocks, threads = dense_geometry(n, o)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().xm_tcg_step_dense(c_ptr, *ptrs, n, o, int(max_inner),
+    c = _checked("tcg_step_dense", args, C, work, checked)
+    blocks, threads = dense_geometry(c.n, c.o)
+    with torch.cuda.device(c.dev):
+        stream = torch.cuda.current_stream(c.dev).cuda_stream
+        rc = _lib().xm_tcg_step_dense(*c.ptrs, c.n, c.o, int(max_inner),
                                       blocks, threads, stream)
     _raise_on(rc, "tcg_step_dense")
     tcg_step_dense.launches += 1
@@ -409,12 +449,17 @@ tcg_step_dense.launches = 0
 
 # ----------------------------------------------------------- the loop --
 
-def prepare(R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta, lam, cfg,
-            minv):
-    """Inputs of the fused loop in the kernel layout: returns ``(const,
-    state, sc, cfgsc)`` where ``const`` holds the ten read-only arrays of
-    ``tcg_step`` (``CWt`` as its scratch output) and ``state`` the eight
-    carried arrays ``(vR, vs, rR, rs, pR, ps, hvR, hvs)``."""
+# positions of the twenty tcg_step arguments: const (Rt .. CWt), the eight
+# carried state arrays (vR .. hvs), sc, cfg
+ARG = {name: i for i, name in enumerate(_STEP_NAMES)}
+
+
+def prepare_arrays(R, s_ex, CsR, egR, egs, pgR, pgs, minv):
+    """The loop's arrays in the kernel layout: ``(const, state, sc)``, where
+    ``const`` holds the ten read-only arrays of ``tcg_step`` (``CWt`` as its
+    scratch output), ``state`` the eight carried arrays ``(vR, vs, rR, rs,
+    pR, ps, hvR, hvs)`` and ``sc`` the scalar carry.  Device work only: the
+    graph route captures it."""
     n, _, o = R.shape
     dev = R.device
     s = s_ex[1:]
@@ -446,9 +491,25 @@ def prepare(R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta, lam, cfg,
     zero = torch.zeros((), dtype=f32, device=dev)
     sc = torch.stack([rdotr0.to(f32), rdotz0.to(f32), zero, zero,
                       rdotz0.to(f32), zero + ER_MAX_INNER, zero, zero])
-    cfgsc = torch.tensor([float(lam), float(delta), float(gradnorm),
-                          float(cfg.rdotr_min)], dtype=f32, device=dev)
-    return const, state, sc, cfgsc
+    return const, state, sc
+
+
+def config_carry(lam, delta, gradnorm, rdotr_min, device) -> torch.Tensor:
+    """The loop's configuration slots ``cfg`` (``C_LAM`` .. ``C_RMIN``) in
+    f32, uploaded from host scalars."""
+    return torch.tensor([float(lam), float(delta), float(gradnorm),
+                         float(rdotr_min)], dtype=torch.float32,
+                        device=device)
+
+
+def prepare(R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta, lam, cfg,
+            minv):
+    """Inputs of the fused loop in the kernel layout: returns ``(const,
+    state, sc, cfgsc)``, :func:`prepare_arrays`' three and
+    :func:`config_carry`'s."""
+    const, state, sc = prepare_arrays(R, s_ex, CsR, egR, egs, pgR, pgs, minv)
+    return const, state, sc, config_carry(lam, delta, gradnorm,
+                                          cfg.rdotr_min, R.device)
 
 
 def dense_matrix(qmul, n: int):
@@ -462,6 +523,51 @@ def dense_matrix(qmul, n: int):
     return C.to(torch.float32).contiguous()
 
 
+def split_product(qmul, args) -> None:
+    """The split variant's product before each launch, into ``CWt``:
+    ``2 Q W``, ``W = pR .* s_ex + R .* ps``, through ``qmul`` (the
+    reference leaves it to XLA outside its kernel)."""
+    Rt, s_ex_t, pR, ps = (args[ARG[k]] for k in ("Rt", "s_ex_t", "pR", "ps"))
+    three_o, n = Rt.shape
+    W = mf.flatten(from_t(pR * s_ex_t + Rt * ps, n, three_o // 3))
+    args[ARG["CWt"]].copy_(to_t(mf.unflatten(2.0 * qmul(W))))
+
+
+def loop_result(args, dt):
+    """The loop's ``(vR, vs, hvR, hvs)`` out of the kernel layout, in
+    ``dt``."""
+    three_o, n = args[ARG["Rt"]].shape
+    o = three_o // 3
+    vR, vs, hvR, hvs = (args[ARG[k]] for k in ("vR", "vs", "hvR", "hvs"))
+    return (from_t(vR, n, o).to(dt), unpack_s(vs, n).to(dt),
+            from_t(hvR, n, o).to(dt), unpack_s(hvs, n).to(dt))
+
+
+class Loop(NamedTuple):
+    """What one fused loop launches on: the twenty ``tcg_step`` arguments,
+    the dense variant's ``C`` (None: the split variant), the product that
+    fills ``CWt`` before each split launch, and the checked pointers (None
+    on the CPU, where the plain twins run)."""
+    args: tuple
+    C: "torch.Tensor | None"
+    product: object
+    checked: "Checked | None"
+
+
+def bind_loop(qmul, args, product=None) -> Loop:
+    """The loop over ``args``: the dense variant where :func:`dense_matrix`
+    finds the matrix, else the split one with ``product`` (default: a call
+    of :func:`split_product`)."""
+    n = args[ARG["Rt"]].shape[1]
+    C = dense_matrix(qmul, n)
+    if C is not None:
+        product = None
+    elif product is None:
+        product = functools.partial(split_product, qmul, args)
+    checked = None if _on_cpu(*args) else check_step(args, None, C)
+    return Loop(args, C, product, checked)
+
+
 def _read_carry(sc: torch.Tensor) -> list:
     """The scalar carry on the host: the loop's one read every
     ``FLAG_EVERY`` launches (counted in ``utils.timer.host_reads``)."""
@@ -470,36 +576,30 @@ def _read_carry(sc: torch.Tensor) -> list:
 
 
 def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
-                    lam, cfg, minv):
+                    lam, cfg, minv, loop: "Loop | None" = None):
     """Drop-in replacement for ``trust_region._inner_tcg`` on the f32 +
     block-Jacobi path.  Same returns: ``(vR, vs, hvR, hvs, endreason,
-    iters)`` with host ints for the last two."""
-    n, _, o = R.shape
+    iters)`` with host ints for the last two.  ``loop``: the launch
+    arguments, already filled (the graph route's static buffers); None
+    prepares them from the other arguments."""
     max_inner = int(cfg.max_inner)
-    const, state, sc, cfgsc = prepare(R, s_ex, CsR, egR, egs, pgR, pgs,
-                                      gradnorm, delta, lam, cfg, minv)
-    vR, vs, rR, rs, pR, ps, hvR, hvs = state
-    Rt, s_ex_t, CWt = const["Rt"], const["s_ex_t"], const["CWt"]
-    C32 = dense_matrix(qmul, n)
-    work = (torch.empty(((6 * o + 1), n), dtype=torch.float32,
-                        device=R.device) if R.device.type == "cuda" else None)
-    step_args = tuple(const.values()) + state + (sc, cfgsc)
+    if loop is None:
+        const, state, sc, cfgsc = prepare(R, s_ex, CsR, egR, egs, pgR, pgs,
+                                          gradnorm, delta, lam, cfg, minv)
+        loop = bind_loop(qmul, tuple(const.values()) + state + (sc, cfgsc))
+    args, C32, product, checked = loop
 
     while True:
         for _ in range(FLAG_EVERY):
             if C32 is not None:
                 # the dense variant: one launch, the product inside
-                tcg_step_dense(C32, *step_args, max_inner, work=work)
+                tcg_step_dense(C32, *args, max_inner, checked=checked)
                 continue
             # the split variant: the product outside the kernel
-            W = mf.flatten(from_t(pR * s_ex_t + Rt * ps, n, o))
-            CWt.copy_(to_t(mf.unflatten(2.0 * qmul(W))))
-            tcg_step(*step_args, max_inner, work=work)
-        carry = _read_carry(sc)
+            product()
+            tcg_step(*args, max_inner, checked=checked)
+        carry = _read_carry(args[ARG["sc"]])
         if carry[S_DONE] != 0.0 or carry[S_I] >= max_inner:
             break
 
-    dt = R.dtype
-    return (from_t(vR, n, o).to(dt), unpack_s(vs, n).to(dt),
-            from_t(hvR, n, o).to(dt), unpack_s(hvs, n).to(dt),
-            int(carry[S_ER]), int(carry[S_I]))
+    return loop_result(args, R.dtype) + (int(carry[S_ER]), int(carry[S_I]))

@@ -1,0 +1,208 @@
+"""The f32 outer step as CUDA graphs, with ``tcg_step`` launched between
+replays.
+
+Within one chunk of the f32 phase on a whole ``DenseQ`` (the route that
+``trust_region.graph_route`` picks) the shapes are fixed, and the step works
+on static buffers: the frames, the scales, the carried ``2 Q sR``, the fused
+loop's arrays and its scalar carry.  Each stretch of device work between two
+host reads is captured once and replayed at every outer step:
+
+* ``start``: ``trust_region._step_start`` (gradient, projection, norm),
+  ``trust_region._build_minv`` and ``fused_tcg.prepare_arrays``, the norm
+  copied into the loop's ``cfg``; then the host reads the norm;
+* ``product``, the split variant's only: ``fused_tcg.split_product``
+  before each ``tcg_step`` launch (the dense variant launches
+  ``tcg_step_dense`` alone);
+* ``end``: ``fused_tcg.loop_result`` and ``trust_region._step_end``; then
+  the host reads the two losses;
+* ``accept``: a kept step's frames, scales and ``2 Q sR`` into the state
+  buffers.
+
+``tcg_step`` and ``tcg_step_dense`` stay outside the graphs: every launch
+goes through its wrapper, one call a launch, and the loop through
+``fused_tcg.inner_tcg_fused``.  The host's scalar logic
+(``trust_region._step_decide``), its reads and the spans are
+``trust_region._outer_step``'s, and the segments are the functions it calls,
+so a replay runs the eager step's kernels on the eager step's data and gives
+its bits.  On the CPU the segments run eagerly on the same buffers (the
+tests' mirror of the route).
+
+The graphs hold the pointer of the f32 operator, which every solve casts
+anew, so they live for one chunk: each is captured at its first use and all
+are released by :meth:`PhaseGraphs.close`.  What they allocate comes from
+one memory pool a card, and the captures run on one stream a card; both stay
+with the process, so a chunk's captures take the blocks the last chunk's
+graphs freed instead of new ones from cudaMalloc, and the stream's cuBLAS
+workspace is made once.  The segments share the pool safely because they
+replay in the order they were captured, and what a segment keeps (its
+outputs) is read before the segments captured before it replay again.  A
+segment's first capture on a card follows one eager run of it on that
+stream, which makes the libraries' handles and workspaces outside the
+capture.  :data:`utils.timer.graph_replays` counts the replays.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+
+import torch
+
+from xmtpu_torch.ops import fused_tcg
+from xmtpu_torch.solver import trust_region as tr
+from xmtpu_torch.utils.timer import graph_replays, span
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _pool(device: torch.device) -> tuple:
+    """``(keeper, pool)``: the process's graph memory pool on ``device``,
+    kept live by a graph of one fill that is never replayed.  A pool whose
+    graphs are all gone cannot be captured into again (the caching
+    allocators assert it), and a new pool a chunk takes new memory from the
+    card (cudaMalloc) while the old one's stays reserved."""
+    pool = torch.cuda.graph_pool_handle()
+    keeper = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(_capture_stream(device)):
+        keeper.capture_begin(pool=pool)
+        try:
+            torch.empty(1, device=device).zero_()
+        finally:
+            keeper.capture_end()
+    return keeper, pool
+
+
+# (device, segment) pairs captured once already in this process
+_warm = set()
+
+
+class PhaseGraphs:
+    """One chunk's outer steps on static buffers (see the module's
+    docstring); ``lam`` is the host scalar of the working dtype."""
+
+    def __init__(self, qop, st: tr.TRState, lam, cfg: tr.TRConfig):
+        dev = st.R.device
+        self.qmul = qop.apply
+        self.Cdiag = qop.diag_blocks()
+        self.lam, self.lam_f, self.cfg = lam, float(lam), cfg
+        self.dt = tr.np_dtype(st.R.dtype)
+        self.capture = dev.type == "cuda"
+        # the state buffers: copies, since the chunk's state may alias a
+        # caller's tensors
+        self.R, self.s_ex = st.R.clone(), st.s_ex.clone()
+        self.QsR = st.QsR.clone()
+        self.cfgsc = fused_tcg.config_carry(lam, 0.0, 0.0, cfg.rdotr_min, dev)
+        self.graphs = {}
+        self.capture_s = 0.0       # host seconds of warm-ups and captures
+        self.loop = self.grad = self.args = self.out = None
+
+    # ---- the segments: device work only, nothing read back
+    def _start(self):
+        grad = tr._step_start(self.qmul, self.R, self.s_ex, self.QsR,
+                              self.lam_f)
+        CsR, egR, egs, pgR, pgs, gn = grad
+        minv = tr._build_minv(self.Cdiag, self.s_ex, self.lam)
+        const, state, sc = fused_tcg.prepare_arrays(
+            self.R, self.s_ex, CsR, egR, egs, pgR, pgs, minv)
+        self.cfgsc[fused_tcg.C_GNORM].copy_(gn)
+        self.grad = grad
+        self.args = tuple(const.values()) + state + (sc, self.cfgsc)
+
+    def _product(self):
+        fused_tcg.split_product(self.qmul, self.args)
+
+    def _end(self):
+        vR, vs, hvR, hvs = fused_tcg.loop_result(self.args, self.R.dtype)
+        pgR, pgs = self.grad[3:5]
+        self.out = tr._step_end(self.qmul, self.R, self.s_ex, vR, vs, hvR,
+                                hvs, pgR, pgs, self.lam_f)
+
+    def _accept(self):
+        _, _, R_new, s_ex_new, dfdsR_new = self.out
+        self.R.copy_(R_new)
+        self.s_ex.copy_(s_ex_new)
+        self.QsR.copy_(dfdsR_new)
+
+    # ---- capture and replay
+    def _run(self, name: str) -> None:
+        fn = getattr(self, "_" + name)
+        if not self.capture:
+            fn()
+            return
+        g = self.graphs.get(name)
+        if g is None:
+            g = self.graphs[name] = self._capture(name, fn)
+        g.replay()
+        graph_replays.n += 1
+
+    def _capture(self, name: str, fn) -> "torch.cuda.CUDAGraph":
+        """``fn`` captured on the card's capture stream into the segment's
+        pool, after an eager run there the first time in the process (the
+        graph then holds the buffers that capture allocated: ``fn`` keeps
+        them as attributes)."""
+        t0 = time.perf_counter()
+        dev = self.R.device
+        cur, stream = torch.cuda.current_stream(dev), _capture_stream(dev)
+        stream.wait_stream(cur)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            if (dev, name) not in _warm:
+                fn()
+                _warm.add((dev, name))
+            g.capture_begin(pool=_pool(dev)[1])
+            try:
+                fn()
+            finally:
+                g.capture_end()
+        cur.wait_stream(stream)
+        self.capture_s += time.perf_counter() - t0
+        return g
+
+    # ---- one outer step
+    def step(self, st: tr.TRState, gradtol, delta_bar) -> tr.TRState:
+        """``trust_region._outer_step`` on the state buffers: the same
+        reads, spans and scalar logic.  ``gradtol`` and ``delta_bar`` are
+        host scalars of the working dtype."""
+        dt = self.dt
+        st = st._replace(R=self.R, s_ex=self.s_ex, QsR=self.QsR)
+        self._run("start")
+        CsR, egR, egs, pgR, pgs, gn = self.grad
+        (gradnorm,) = tr._fetch(gn, dt=dt)
+        if gradnorm < gradtol:
+            return st._replace(gradnorm=gradnorm, done=True,
+                               done_reason=tr.DONE_GRADTOL)
+
+        self.cfgsc[fused_tcg.C_DELTA].fill_(float(st.delta))
+        if self.loop is None or not self.capture:
+            self.loop = fused_tcg.bind_loop(
+                self.qmul, self.args,
+                product=functools.partial(self._run, "product"))
+        with span("xm.tr.tcg"):
+            endreason, iters = fused_tcg.inner_tcg_fused(
+                self.qmul, self.R, self.s_ex, CsR, egR, egs, pgR, pgs,
+                gradnorm, st.delta, self.lam, self.cfg, None, self.loop)[4:]
+
+        self._run("end")
+        loss_qu, loss_new = tr._fetch(*self.out[:2], dt=dt)
+        keep_new, st = tr._step_decide(
+            st, self.cfg, delta_bar, gradnorm, endreason, iters, loss_qu,
+            loss_new, self.R, self.s_ex, self.QsR)
+        if keep_new:
+            self._run("accept")
+        return st
+
+    def close(self) -> None:
+        """Releases the graphs and every buffer they allocated; the state
+        buffers stay with the states that hold them."""
+        self.graphs.clear()
+        self.loop = self.grad = self.args = self.out = None
+
+    def __enter__(self) -> "PhaseGraphs":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

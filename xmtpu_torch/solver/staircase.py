@@ -41,8 +41,9 @@ from xmtpu_torch.io.bin_format import load_matrix_from_bin, save_matrix_to_bin
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.solver import trust_region as tr
 from xmtpu_torch.solver.certificate import certify
-from xmtpu_torch.utils.timer import (host_reads, max_memory_allocated,
-                                     memory_allocated, span, spanned)
+from xmtpu_torch.utils.timer import (graph_replays, host_reads,
+                                     max_memory_allocated, memory_allocated,
+                                     span, spanned)
 
 STATUS_CERTIFIED = 1
 STATUS_MAX_RANK = 2
@@ -67,7 +68,9 @@ class SolveResult(NamedTuple):
     # per-rank stage log: wall clock (stage_s solve, cert_s certificate:
     # the spans xm.stage and xm.cert enclose stage_s + cert_s and cert_s),
     # iteration counts, the certificate verdict, host_reads (the trust
-    # region's device-to-host reads, utils.timer.host_reads) and, read only
+    # region's device-to-host reads, utils.timer.host_reads), graph_replays
+    # (the replays of its captured CUDA graphs, 0 on the eager route,
+    # utils.timer.graph_replays) and, read only
     # while spans are on and on a card, mem_base_bytes (allocated at the
     # solve's start), peak_bytes and cert_peak_bytes (the card's peak
     # allocation at the end of the rank's trust region and of its
@@ -77,12 +80,13 @@ class SolveResult(NamedTuple):
 
 class _RankLog:
     """One rank's counters for ``SolveResult.stages``: the trust region's
-    host reads, and while spans are on the card's memory (``mem_base`` is
-    the solve's, None when not read)."""
+    host reads and graph replays, and while spans are on the card's memory
+    (``mem_base`` is the solve's, None when not read)."""
 
     def __init__(self, dev, mem_base):
         self.dev = dev
         self.reads0 = host_reads.n
+        self.replays0 = graph_replays.n
         self.mem = {} if mem_base is None else {"mem_base_bytes": mem_base}
 
     def _peak(self, key):
@@ -103,7 +107,8 @@ class _RankLog:
     def counters(self) -> dict:
         if "peak_bytes" not in self.mem:
             self._peak("peak_bytes")
-        return dict(host_reads=host_reads.n - self.reads0, **self.mem)
+        return dict(host_reads=host_reads.n - self.reads0,
+                    graph_replays=graph_replays.n - self.replays0, **self.mem)
 
 
 def _fail_state(R0, s_ex0) -> tr.TRState:

@@ -13,6 +13,12 @@ block-Jacobi preconditioner goes through the fused kernels
 (``ops.fused_tcg``); every other case — f64 carries, unpreconditioned runs
 and every CPU run — takes the generic loop, which is the reference's CPU
 branch.
+
+Outer-step routing (``_run_chunk``): where :func:`graph_route` holds (an f32
+carry on a whole ``DenseQ`` on one card, preconditioned), a chunk's outer
+steps replay CUDA graphs of :func:`_outer_step`'s own segments
+(``solver/graph_step.py``), with the same host reads, spans and bits;
+everywhere else they run :func:`_outer_step` itself.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops import manifold as mf
-from xmtpu_torch.ops.qop import as_qop
+from xmtpu_torch.ops.qop import DenseQ, as_qop
 from xmtpu_torch.utils.timer import host_reads, span, spanned
 
 # done_reason codes
@@ -255,15 +261,18 @@ def _inner_tcg(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta, lam,
 def _build_minv(Cdiag, s_ex, lam):
     """Block-Jacobi preconditioner (see the reference's ``_build_minv``).
     Returns ``(minv (n,3,3), ms (n-1,))``: ``z_R = minv r_R`` (tangent-
-    projected), ``z_s = r_s / ms``."""
+    projected), ``z_s = r_s / ms``.  Device work only, with no read back
+    (the graph route captures it): the Cholesky's ``info`` goes unread, as
+    the reference's ``jnp.linalg.cholesky`` reports nothing either; the
+    ``1e-4`` shift keeps each normalised block positive definite."""
     dtype, dev = Cdiag.dtype, Cdiag.device
     M = 2.0 * (s_ex * s_ex)[:, None, None] * Cdiag
     tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1).mean() / 3.0
-    tr = torch.maximum(tr, torch.tensor(1e-300, dtype=dtype, device=dev))
+    tr = torch.maximum(tr, torch.full((), 1e-300, dtype=dtype, device=dev))
     M = M / tr
     eye = torch.eye(3, dtype=dtype, device=dev)
     M = M + 1e-4 * eye
-    L = torch.linalg.cholesky(M)
+    L, _info = torch.linalg.cholesky_ex(M)
     Linv = torch.linalg.solve_triangular(L, eye.expand(M.shape), upper=False,
                                          left=True)
     minv = torch.einsum("nka,nkb->nab", Linv, Linv)
@@ -273,11 +282,44 @@ def _build_minv(Cdiag, s_ex, lam):
     ms_quad = 2.0 * trC
     ms = ms_quad + float(lam) * (12.0 * s * s - 4.0)
     ms = torch.maximum(ms, 0.2 * ms_quad) / tr
-    ms = torch.maximum(ms, torch.tensor(1e-4, dtype=dtype, device=dev))
+    ms = torch.maximum(ms, torch.full((), 1e-4, dtype=dtype, device=dev))
     # identity at lam == 0 (see the reference for the measurement)
     if not lam > 0:
         ms = torch.ones_like(ms)
     return minv, ms
+
+
+def _step_start(qmul, R, s_ex, QsR, lam_f: float):
+    """The outer step up to its tCG: the Euclidean gradient (from the
+    carried ``QsR = 2 Q sR`` where there is one), its tangent projection and
+    the norm.  Returns ``(CsR, egR, egs, pgR, pgs, gradnorm)``, the norm a
+    0-d tensor.  Device work only: the graph route captures it."""
+    s = s_ex[1:]
+    if QsR is None:
+        egR, egs, CsR = mf.egrad_csr(qmul, R, s_ex, lam_f)
+    else:
+        CsR = QsR
+        egR, egs = mf.egrad_from_csr(CsR, R, s_ex, lam_f)
+    pgR, pgs = mf.project(R, s, egR, egs)
+    return CsR, egR, egs, pgR, pgs, torch.sqrt(mf.inner(pgR, pgR, pgs, pgs,
+                                                         s))
+
+
+def _step_end(qmul, R, s_ex, vR, vs, hvR, hvs, pgR, pgs, lam_f: float):
+    """The outer step after its tCG: the model decrease, the retraction,
+    the new carried ``2 Q sR`` and loss.  Returns ``(loss_qu, loss_new,
+    R_new, s_ex_new, dfdsR_new)``, the losses 0-d tensors.  Device work
+    only: the graph route captures it."""
+    s = s_ex[1:]
+    # <v, Hv>/2 + <v, g> folded into ONE metric reduction pass
+    loss_qu = mf.inner(vR, 0.5 * hvR + pgR, vs, 0.5 * hvs + pgs, s)
+    R_new, s_ex_new = mf.retract(R, s_ex, vR, vs, 1.0)
+    sR_new = mf.flatten(mf.scale_blocks(R_new, s_ex_new))
+    dfdsR_new = mf.unflatten(2.0 * qmul(sR_new))
+    s_new = s_ex_new[1:]
+    loss_new = (0.5 * mf.vdot(mf.flatten(dfdsR_new), sR_new)
+                + lam_f * torch.sum((s_new * s_new - 1.0) ** 2))
+    return loss_qu, loss_new, R_new, s_ex_new, dfdsR_new
 
 
 def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
@@ -288,14 +330,9 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
         qmul_inner = qmul
     dt = np_dtype(st.R.dtype)
     lam_f = float(lam)
-    s = st.s_ex[1:]
-    if st.QsR is None:
-        egR, egs, CsR = mf.egrad_csr(qmul, st.R, st.s_ex, lam_f)
-    else:
-        CsR = st.QsR
-        egR, egs = mf.egrad_from_csr(CsR, st.R, st.s_ex, lam_f)
-    pgR, pgs = mf.project(st.R, s, egR, egs)
-    (gradnorm,) = _fetch(torch.sqrt(mf.inner(pgR, pgR, pgs, pgs, s)), dt=dt)
+    CsR, egR, egs, pgR, pgs, gn = _step_start(qmul, st.R, st.s_ex, st.QsR,
+                                              lam_f)
+    (gradnorm,) = _fetch(gn, dt=dt)
 
     if gradnorm < gradtol:
         return st._replace(gradnorm=gradnorm, done=True,
@@ -306,18 +343,22 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
         vR, vs, hvR, hvs, endreason, iters = _inner_tcg(
             qmul_inner, st.R, st.s_ex, CsR, egR, egs, pgR, pgs, gradnorm,
             st.delta, lam, cfg, minv=minv)
-    total_inner = st.total_inner + iters
 
-    # <v, Hv>/2 + <v, g> folded into ONE metric reduction pass
-    loss_qu = mf.inner(vR, 0.5 * hvR + pgR, vs, 0.5 * hvs + pgs, s)
-    R_new, s_ex_new = mf.retract(st.R, st.s_ex, vR, vs, 1.0)
-    sR_new = mf.flatten(mf.scale_blocks(R_new, s_ex_new))
-    dfdsR_new = mf.unflatten(2.0 * qmul(sR_new))
-    s_new = s_ex_new[1:]
-    loss_new = (0.5 * mf.vdot(mf.flatten(dfdsR_new), sR_new)
-                + lam_f * torch.sum((s_new * s_new - 1.0) ** 2))
+    loss_qu, loss_new, R_new, s_ex_new, dfdsR_new = _step_end(
+        qmul, st.R, st.s_ex, vR, vs, hvR, hvs, pgR, pgs, lam_f)
     loss_qu, loss_new = _fetch(loss_qu, loss_new, dt=dt)
+    return _step_decide(st, cfg, delta_bar, gradnorm, endreason, iters,
+                        loss_qu, loss_new, R_new, s_ex_new, dfdsR_new)[1]
 
+
+def _step_decide(st: TRState, cfg: TRConfig, delta_bar, gradnorm, endreason,
+                 iters, loss_qu, loss_new, R_new, s_ex_new,
+                 dfdsR_new) -> "tuple[bool, TRState]":
+    """The outer step's scalar logic on the host: ``rho``, the radius,
+    acceptance, collapse and the stop rules.  Returns ``(keep_new, the next
+    state)``; the next state holds ``R_new``, ``s_ex_new`` and ``dfdsR_new``
+    where the step is kept."""
+    dt = np_dtype(st.R.dtype)
     with np.errstate(all="ignore"):
         bad_model = bool(loss_qu >= 0.0)
         rho = (loss_new - st.loss) / loss_qu
@@ -376,9 +417,10 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
         hist_out = st.hist.copy()
         hist_out[st.k % cfg.history] = [st.k, iters, loss_out, gradnorm, rho,
                                         st.delta, acc, endreason]
-    return TRState(R_out, s_ex_out, loss_out, delta_out, shrink_out,
-                   endreason, st.k + 1, total_inner, gradnorm, done,
-                   done_reason, QsR_out, cc_out, accepts_out, hist_out)
+    return keep_new, TRState(
+        R_out, s_ex_out, loss_out, delta_out, shrink_out, endreason,
+        st.k + 1, st.total_inner + iters, gradnorm, done, done_reason,
+        QsR_out, cc_out, accepts_out, hist_out)
 
 
 _CHUNK_SPAN = {torch.float32: "xm.tr.chunk.f32",
@@ -403,10 +445,30 @@ def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
 
         dt = np_dtype(st.R.dtype)
         lam, gradtol, delta_bar = dt(lam), dt(gradtol), dt(delta_bar)
+        if qmul_inner is None and graph_route(qop, st, cfg):
+            from xmtpu_torch.solver.graph_step import PhaseGraphs
+
+            with PhaseGraphs(qop, st, lam, cfg) as phase:
+                while not st.done and st.k < kmax:
+                    st = phase.step(st, gradtol, delta_bar)
+            return st
         while not st.done and st.k < kmax:
             st = _outer_step(qmul, st, lam, gradtol, delta_bar, cfg, Cdiag,
                              qmul_inner)
     return st
+
+
+def graph_route(qop, st: TRState, cfg: TRConfig) -> bool:
+    """Whether a chunk's outer steps run as CUDA graphs
+    (``solver/graph_step.py``): the operator is a whole ``DenseQ`` in f32 on
+    the carry's CUDA device, the carry is f32 with its ``2 Q sR``, and the
+    block-Jacobi preconditioner is on.  Every other case (``SchurQ`` and
+    its forms, the sharded operators of ``parallel/``, f64 carries, every
+    CPU run) steps through :func:`_outer_step`."""
+    R = st.R
+    return (type(qop) is DenseQ and cfg.precondition and st.QsR is not None
+            and R.dtype == torch.float32 and R.device.type == "cuda"
+            and qop.C.dtype == torch.float32 and qop.C.device == R.device)
 
 
 def _init_state(Q, R0, s_ex0, lam, delta_bar, cfg: TRConfig,

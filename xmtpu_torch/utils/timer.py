@@ -23,10 +23,12 @@ the next where they nest:
 
 Counters.  :data:`host_reads` counts the device-to-host reads of the trust
 region's control loop (``solver/trust_region._fetch``,
-``ops/fused_tcg._read_carry``); it only grows, and a reader takes the
-difference over the stretch it measures.  :func:`memory_allocated` and
+``ops/fused_tcg._read_carry``), and :data:`graph_replays` the replays of
+its captured CUDA graphs (``solver/graph_step.py``); both only grow, and a
+reader takes the difference over the stretch it measures.  :func:`memory_allocated` and
 :func:`max_memory_allocated` read the card's allocator while spans are on.
-``solve_arrays`` puts both, per rank, into ``SolveResult.stages``.
+``solve_arrays`` puts the counts and readings, per rank, into
+``SolveResult.stages``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def spanned(name: str):
 
 
 class ReadCounter:
-    """A count that only grows: ``n``, the reads counted so far."""
+    """A count that only grows: ``n``, the events counted so far."""
 
     __slots__ = ("n",)
 
@@ -74,6 +76,8 @@ class ReadCounter:
 
 # the trust region's device-to-host reads (each one also a synchronise)
 host_reads = ReadCounter()
+# replays of the trust region's captured CUDA graphs (solver/graph_step.py)
+graph_replays = ReadCounter()
 
 
 def _card(device) -> bool:
