@@ -32,6 +32,12 @@ Here each runs on the whole operator; the camera-sharded operator of
 ``parallel/sharded.py`` runs the same stage code slot by slot through its
 own seams.
 
+Every product of an operator of this module (``apply``) runs in the span
+``xm.schurq.apply`` and is counted by its arithmetic in
+``utils.timer.applies_f64`` (the exact ``SchurQ``), ``applies_tf``
+(``SchurQTF``) or ``applies_f32`` (``SchurQEdgeF32``, and ``SchurQ`` cast
+to float32); a sharded operator counts as the class it shards.
+
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
 Newton-Schulz) stays selectable.
@@ -40,6 +46,7 @@ Newton-Schulz) stays selectable.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +56,9 @@ from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
 from xmtpu_torch.ops.segsum import (max_band, planned_offsets,
                                     sorted_segment_sum)
+from xmtpu_torch.utils.timer import applies_f32, applies_f64, applies_tf, span
+
+APPLY_SPAN = "xm.schurq.apply"
 
 # above this (N * M * 8 bytes) the build switches from one (N, M) V3F slab
 # to landmark-chunked Gram accumulation (the reference's ~4 GB budget)
@@ -120,6 +130,26 @@ def _cf_f_rows(q, z_B):
 
 def _cf_l_rows(q, x_pad):
     return q.cf_l[:, None] * x_pad[q.f_l]
+
+
+def _applies(q):
+    """The counter of ``q``'s products (module doc)."""
+    kind = getattr(q, "kind", type(q))
+    if kind is SchurQTF:
+        return applies_tf
+    if kind is SchurQEdgeF32 or q.inv_q3.dtype != torch.float64:
+        return applies_f32
+    return applies_f64
+
+
+def _traced(apply):
+    """``apply`` in the span ``xm.schurq.apply``, counted (module doc)."""
+    @functools.wraps(apply)
+    def traced(self, Y):
+        _applies(self).n += 1
+        with span(APPLY_SPAN):
+            return apply(self, Y)
+    return traced
 
 
 def _bands(l_l, f_f):
@@ -297,6 +327,7 @@ class SchurQ(QOperator):
 
     # ---- operator interface ----
 
+    @_traced
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         n = self.n_cameras
         Yb = Y.reshape(n, 3, Y.shape[-1])
@@ -613,6 +644,7 @@ class SchurQTF(QOperator):
         red = self._esum2("f", _wx_outer_rows2, zh, zl)
         return (out - red.reshape(n, 3 * o)).reshape(n, 3, o)
 
+    @_traced
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         n = self.n_cameras
         o = Y.shape[-1]

@@ -75,7 +75,7 @@ def _split_y(ybar_est, N):
     return y_est[:, :N], y_est[:, N:]
 
 
-@spanned("xm.recover")
+@spanned("xm.recover", leaf=True)
 def recover_XM_implicit(Q, R, s, lam, verbose: bool = True):
     """Recovery through the implicit operator — no dense ``Abar``: the
     translation/landmark solve is ``Q.recover_y``.  Returns ``(R_real,
@@ -87,7 +87,7 @@ def recover_XM_implicit(Q, R, s, lam, verbose: bool = True):
     return R_real, s_real, p_est, t_est
 
 
-@spanned("xm.recover")
+@spanned("xm.recover", leaf=True)
 def recover_XM(Q, R, s, Abar, lam, verbose: bool = True):
     """Recover rotations / scales / translations / landmark positions.
 

@@ -172,6 +172,9 @@ class PhaseGraphs:
         self._run("start")
         CsR, egR, egs, pgR, pgs, gn = self.grad
         (gradnorm,) = tr._fetch(gn, dt=dt)
+        end = tr._nonfinite(st, gradnorm)
+        if end is not None:
+            return end
         if gradnorm < gradtol:
             return st._replace(gradnorm=gradnorm, done=True,
                                done_reason=tr.DONE_GRADTOL)
@@ -188,6 +191,9 @@ class PhaseGraphs:
 
         self._run("end")
         loss_qu, loss_new = tr._fetch(*self.out[:2], dt=dt)
+        end = tr._nonfinite(st, loss_qu, loss_new)
+        if end is not None:
+            return end
         keep_new, st = tr._step_decide(
             st, self.cfg, delta_bar, gradnorm, endreason, iters, loss_qu,
             loss_new, self.R, self.s_ex, self.QsR)

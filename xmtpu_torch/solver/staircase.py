@@ -41,9 +41,10 @@ from xmtpu_torch.io.bin_format import load_matrix_from_bin, save_matrix_to_bin
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.solver import trust_region as tr
 from xmtpu_torch.solver.certificate import certify
-from xmtpu_torch.utils.timer import (graph_replays, host_reads,
-                                     max_memory_allocated, memory_allocated,
-                                     span, spanned)
+from xmtpu_torch.utils.timer import (applies_f32, applies_f64, applies_tf,
+                                     f32_nonfinite, graph_replays,
+                                     host_reads, max_memory_allocated,
+                                     memory_allocated, span, spanned)
 
 STATUS_CERTIFIED = 1
 STATUS_MAX_RANK = 2
@@ -70,7 +71,11 @@ class SolveResult(NamedTuple):
     # iteration counts, the certificate verdict, host_reads (the trust
     # region's device-to-host reads, utils.timer.host_reads), graph_replays
     # (the replays of its captured CUDA graphs, 0 on the eager route,
-    # utils.timer.graph_replays) and, read only
+    # utils.timer.graph_replays), f32_nonfinite (the f32 phases ended at a
+    # non-finite reading, utils.timer.f32_nonfinite), applies_f64,
+    # applies_tf and applies_f32 (the implicit operator's products in the
+    # rank, its certificate included: utils.timer's counters of those names)
+    # and, read only
     # while spans are on and on a card, mem_base_bytes (allocated at the
     # solve's start), peak_bytes and cert_peak_bytes (the card's peak
     # allocation at the end of the rank's trust region and of its
@@ -78,15 +83,21 @@ class SolveResult(NamedTuple):
     stages: tuple = ()
 
 
+# a rank's counters in SolveResult.stages, by key (utils.timer)
+_COUNTERS = {"host_reads": host_reads, "graph_replays": graph_replays,
+             "f32_nonfinite": f32_nonfinite, "applies_f64": applies_f64,
+             "applies_tf": applies_tf, "applies_f32": applies_f32}
+
+
 class _RankLog:
-    """One rank's counters for ``SolveResult.stages``: the trust region's
-    host reads and graph replays, and while spans are on the card's memory
-    (``mem_base`` is the solve's, None when not read)."""
+    """One rank's counters for ``SolveResult.stages`` (:data:`_COUNTERS`:
+    the trust region's host reads, graph replays and non-finite f32 ends,
+    the implicit operator's products), and while spans are on the card's
+    memory (``mem_base`` is the solve's, None when not read)."""
 
     def __init__(self, dev, mem_base):
         self.dev = dev
-        self.reads0 = host_reads.n
-        self.replays0 = graph_replays.n
+        self.start = {k: c.n for k, c in _COUNTERS.items()}
         self.mem = {} if mem_base is None else {"mem_base_bytes": mem_base}
 
     def _peak(self, key):
@@ -107,8 +118,8 @@ class _RankLog:
     def counters(self) -> dict:
         if "peak_bytes" not in self.mem:
             self._peak("peak_bytes")
-        return dict(host_reads=host_reads.n - self.reads0,
-                    graph_replays=graph_replays.n - self.replays0, **self.mem)
+        return dict({k: c.n - self.start[k] for k, c in _COUNTERS.items()},
+                    **self.mem)
 
 
 def _fail_state(R0, s_ex0) -> tr.TRState:
@@ -163,7 +174,9 @@ def _stage_certify_fused(C, R0, s_ex0, lam, gradtol, gradtol32, delta_bar,
             s1[0] = 1.0
             # polish warm-start radius: the f32 phase's final radius,
             # floored so a hard f32 collapse cannot stall the f64 start
-            delta0 = max(np.float64(st32.delta), delta_bar * 1e-3)
+            # (the default start where a non-finite radius ended the phase)
+            delta0 = (max(np.float64(st32.delta), delta_bar * 1e-3)
+                      if np.isfinite(st32.delta) else None)
         st = tr._init_state(C, R1, s1, lam, delta_bar, cfg, delta0)
         st = tr._run_chunk(C, st, lam, gradtol, delta_bar, cfg, kmax,
                            C32 if inner32 else None)

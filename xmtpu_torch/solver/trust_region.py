@@ -19,6 +19,17 @@ carry on a whole ``DenseQ`` on one card, preconditioned), a chunk's outer
 steps replay CUDA graphs of :func:`_outer_step`'s own segments
 (``solver/graph_step.py``), with the same host reads, spans and bits;
 everywhere else they run :func:`_outer_step` itself.
+
+Non-finite readings (:func:`_nonfinite`): an outer step in float32 whose
+gradient norm, model decrease, trial loss or trust radius reads non-finite
+at the step's host reads ends its phase at the last accepted iterate
+(``DONE_NONFINITE``, counted in ``utils.timer.f32_nonfinite``); the mixed
+ladder's f64 polish starts from there.  Every comparison of the step's
+scalar logic is false on NaN, so without the check such a step would be
+accepted.  The trial loss adds the scale penalty only where its weight is
+non-zero: a trial scale past 2^32 squares twice to inf in float32, and
+``0 * inf`` made the loss NaN where float64 reads it large and rejects the
+step.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import torch
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.ops.qop import DenseQ, as_qop
-from xmtpu_torch.utils.timer import host_reads, span, spanned
+from xmtpu_torch.utils.timer import f32_nonfinite, host_reads, span, spanned
 
 # done_reason codes
 RUNNING = 0
@@ -44,6 +55,7 @@ DONE_DELTA = 4          # trust radius collapsed
 DONE_MAX_OUTER = 5
 DONE_MAX_TIME = 6
 DONE_LINESEARCH_FAIL = 7  # staircase abort, primal = -1
+DONE_NONFINITE = 8      # f32: a non-finite reading ended the phase
 
 # tCG endreason codes
 ER_NEGCURV = 1
@@ -317,9 +329,24 @@ def _step_end(qmul, R, s_ex, vR, vs, hvR, hvs, pgR, pgs, lam_f: float):
     sR_new = mf.flatten(mf.scale_blocks(R_new, s_ex_new))
     dfdsR_new = mf.unflatten(2.0 * qmul(sR_new))
     s_new = s_ex_new[1:]
-    loss_new = (0.5 * mf.vdot(mf.flatten(dfdsR_new), sR_new)
-                + lam_f * torch.sum((s_new * s_new - 1.0) ** 2))
+    loss_new = 0.5 * mf.vdot(mf.flatten(dfdsR_new), sR_new)
+    if lam_f:
+        # a zero weight adds nothing: the penalty of a far trial scale is
+        # inf in float32, and 0 * inf would make the loss NaN
+        loss_new = loss_new + lam_f * torch.sum((s_new * s_new - 1.0) ** 2)
     return loss_qu, loss_new, R_new, s_ex_new, dfdsR_new
+
+
+def _nonfinite(st: TRState, *readings) -> "TRState | None":
+    """The state that ends a float32 phase at its last accepted iterate
+    ``st`` where one of the host ``readings`` or the radius is not finite
+    (counted in ``utils.timer.f32_nonfinite``); None otherwise, and always
+    in float64."""
+    if (st.R.dtype != torch.float32
+            or np.isfinite(np.array(readings + (st.delta,))).all()):
+        return None
+    f32_nonfinite.n += 1
+    return st._replace(done=True, done_reason=DONE_NONFINITE)
 
 
 def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
@@ -333,7 +360,9 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
     CsR, egR, egs, pgR, pgs, gn = _step_start(qmul, st.R, st.s_ex, st.QsR,
                                               lam_f)
     (gradnorm,) = _fetch(gn, dt=dt)
-
+    end = _nonfinite(st, gradnorm)
+    if end is not None:
+        return end
     if gradnorm < gradtol:
         return st._replace(gradnorm=gradnorm, done=True,
                            done_reason=DONE_GRADTOL)
@@ -347,6 +376,9 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
     loss_qu, loss_new, R_new, s_ex_new, dfdsR_new = _step_end(
         qmul, st.R, st.s_ex, vR, vs, hvR, hvs, pgR, pgs, lam_f)
     loss_qu, loss_new = _fetch(loss_qu, loss_new, dt=dt)
+    end = _nonfinite(st, loss_qu, loss_new)
+    if end is not None:
+        return end
     return _step_decide(st, cfg, delta_bar, gradnorm, endreason, iters,
                         loss_qu, loss_new, R_new, s_ex_new, dfdsR_new)[1]
 

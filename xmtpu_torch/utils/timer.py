@@ -19,13 +19,24 @@ the next where they nest:
   iterations in that working dtype;
 * ``xm.tr.tcg``: one truncated-CG solve (inside a chunk);
 * ``xm.cert``: the dual certificate (the interval of ``cert_s``);
-* ``xm.recover``: ``pipeline/recover.recover_XM`` / ``recover_XM_implicit``.
+* ``xm.schurq.apply``: one product of the implicit operator
+  (``ops/schurq.py``: ``SchurQ.apply``, which ``SchurQEdgeF32`` and the
+  sharded operator share, and ``SchurQTF.apply``), inside a trust-region
+  span, the certificate's, or a stage's own reads of the loss;
+* ``xm.recover``: ``pipeline/recover.recover_XM`` / ``recover_XM_implicit``,
+  a leaf: no span opens inside it.
 
 Counters.  :data:`host_reads` counts the device-to-host reads of the trust
 region's control loop (``solver/trust_region._fetch``,
-``ops/fused_tcg._read_carry``), and :data:`graph_replays` the replays of
-its captured CUDA graphs (``solver/graph_step.py``); both only grow, and a
-reader takes the difference over the stretch it measures.  :func:`memory_allocated` and
+``ops/fused_tcg._read_carry``), :data:`graph_replays` the replays of its
+captured CUDA graphs (``solver/graph_step.py``), :data:`f32_nonfinite` the
+mixed ladder's f32 phases ended at a non-finite reading
+(``solver/trust_region._nonfinite``), and :data:`applies_f64`,
+:data:`applies_tf` and :data:`applies_f32` the implicit operator's
+products: the exact ``SchurQ`` in float64, the two-float ``SchurQTF``, and
+those in float32 arithmetic (``SchurQEdgeF32``'s edge sums, ``SchurQ``
+cast to float32).  All only grow, and a reader takes the difference over
+the stretch it measures.  :func:`memory_allocated` and
 :func:`max_memory_allocated` read the card's allocator while spans are on.
 ``solve_arrays`` puts the counts and readings, per rank, into
 ``SolveResult.stages``.
@@ -48,25 +59,34 @@ _OFF = contextlib.nullcontext()
 
 def span(name: str):
     """A context naming the enclosed host work ``name`` in a profiler trace
-    that is recording, else the shared no-op context."""
-    if not _autograd_profiler._is_profiler_enabled:
+    that is recording, else (or inside a leaf span) the shared no-op
+    context."""
+    if not _autograd_profiler._is_profiler_enabled or _leaves.n:
         return _OFF
     return _RecordFunctionFast(name)
 
 
-def spanned(name: str):
-    """Decorator: each call of the function inside ``span(name)``."""
+def spanned(name: str, leaf: bool = False):
+    """Decorator: each call of the function inside ``span(name)``; with
+    ``leaf``, no span opens inside the call."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             with span(name):
-                return fn(*args, **kwargs)
+                if not leaf:
+                    return fn(*args, **kwargs)
+                _leaves.n += 1
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    _leaves.n -= 1
         return call
     return wrap
 
 
 class ReadCounter:
-    """A count that only grows: ``n``, the events counted so far."""
+    """A count: ``n``, the events counted so far (the counters below only
+    grow; ``_leaves`` is a depth)."""
 
     __slots__ = ("n",)
 
@@ -78,6 +98,17 @@ class ReadCounter:
 host_reads = ReadCounter()
 # replays of the trust region's captured CUDA graphs (solver/graph_step.py)
 graph_replays = ReadCounter()
+# f32 phases of the mixed ladder ended at a non-finite loss, gradient norm
+# or radius (solver/trust_region.py)
+f32_nonfinite = ReadCounter()
+# the implicit operator's products (ops/schurq.py): exact float64, two-float,
+# float32 arithmetic
+applies_f64 = ReadCounter()
+applies_tf = ReadCounter()
+applies_f32 = ReadCounter()
+# the depth of open leaf spans (spanned(..., leaf=True)): no span opens
+# inside one
+_leaves = ReadCounter()
 
 
 def _card(device) -> bool:
