@@ -1284,9 +1284,10 @@ def check_rotations(tag, got, ref):
 def counted_kernels():
     from xmtpu_torch.ops import fused_tcg as ft
     from xmtpu_torch.ops import segsum as ss
+    from xmtpu_torch.ops.schurq import schurq_product
 
     return (ft.tcg_step, ft.tcg_step_dense, ss.sorted_segment_sum,
-            ss.sorted_segment_sum_blocked)
+            ss.sorted_segment_sum_blocked, schurq_product)
 
 
 def reset_counts():
@@ -1311,7 +1312,8 @@ def read_counts() -> dict:
 
 def hold_carried_operator(scB, dev) -> dict:
     """Scene B's ``SchurQ`` built on the host, moved to the card by
-    ``as_qop``: each variant's apply must launch the segment-sum kernel, give
+    ``as_qop``: each variant's apply must launch the segment-sum kernel (the
+    f32 cast: the fused product's kernels, ``schurq_product``), give
     the same bits twice, and lie no further from the exact host apply than
     twice the same variant's host apply does (1e-9 for the exact operator;
     the f32 variants sit at their f32-accumulation floor, ~6e-6 here).
@@ -1321,7 +1323,7 @@ def hold_carried_operator(scB, dev) -> dict:
 
     from xmtpu_torch.ops import segsum as ss
     from xmtpu_torch.ops.qop import as_qop, cast_qop
-    from xmtpu_torch.ops.schurq import SchurQ
+    from xmtpu_torch.ops.schurq import SchurQ, schurq_product
 
     q_host = SchurQ.build(scB.weights, scB.edges, scB.landmarks, device="cpu")
     q_card = as_qop(q_host, device=dev)
@@ -1339,12 +1341,16 @@ def hold_carried_operator(scB, dev) -> dict:
                       ("two_float", lambda q: q.two_float())):
         qh, qc = make(q_host), make(q_card)
         y = Y.to(qh.Q1.dtype)
-        n0 = ss.sorted_segment_sum.launches
+        n0, f0 = ss.sorted_segment_sum.launches, schurq_product.launches
         a, b = qc.apply(y.to(dev)), qc.apply(y.to(dev))
         torch.cuda.synchronize()
-        if ss.sorted_segment_sum.launches < n0 + 8 or not torch.equal(a, b):
+        launched = (schurq_product.launches == f0 + 2 if tag == "f32 cast"
+                    else ss.sorted_segment_sum.launches >= n0 + 8)
+        if not launched or not torch.equal(a, b):
             raise AssertionError(f"carried {tag}: launches "
-                                 f"{ss.sorted_segment_sum.launches - n0}, "
+                                 f"{ss.sorted_segment_sum.launches - n0} "
+                                 f"segment sums, "
+                                 f"{schurq_product.launches - f0} fused, "
                                  f"repeatable {torch.equal(a, b)}")
         d_card, d_host = rel(a), rel(qh.apply(y))
         if not d_card <= 2.0 * d_host + 1e-9:
@@ -3513,7 +3519,8 @@ def run(dev, card: str) -> int:
     if abs(res_C.primal - PRIMAL_C) > RTOL_IMPLICIT * PRIMAL_C:
         raise AssertionError(f"scene C primal {res_C.primal} vs {PRIMAL_C}")
     check_rotations("scene C", rot_C, ROT_C)
-    if counts["C"]["sorted_segment_sum"] <= 0 or counts["C"]["tcg_step"] <= 0:
+    if min(counts["C"][k] for k in ("sorted_segment_sum", "tcg_step",
+                                     "schurq_product")) <= 0:
         raise AssertionError(f"scene C: a kernel never launched {counts['C']}")
     # tcg_step's device time inside the solve, where a SchurQ apply runs
     # between its launches (a second, traced solve; as chip_profile.py reads)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (fused tCG, sorted segment sums) against their plain
-PyTorch twins.
+"""The CUDA kernels (fused tCG, sorted segment sums, the fused float32
+product of ``SchurQ``) against their plain PyTorch twins.
 
 This file imports neither JAX nor ``xmtpu``, so it also runs on the machine
 with the card, where JAX is absent (``--noconftest`` skips the suite's
@@ -26,8 +26,10 @@ from xmtpu_torch.ops import fused_tcg as ft
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.ops import segsum as ss
 from xmtpu_torch.ops.qop import DenseQ, as_qop, cast_qop
-from xmtpu_torch.ops.schurq import SchurQ
-from xmtpu_torch.pipeline.synthetic import make_scene
+from xmtpu_torch.ops.schurq import (FUSED_COLUMNS, SchurQ, pad_cameras,
+                                    schurq_product, schurq_product_plain)
+from xmtpu_torch.pipeline.synthetic import make_scene, make_scene_window
+from xmtpu_torch.utils import timer
 from xmtpu_torch.solver import trust_region as tr
 
 
@@ -861,8 +863,9 @@ def test_schurq_host_sums_ignore_bands(kind):
 @pytest.mark.parametrize("kind", list(_OPS))
 def test_schurq_moved_to_card_takes_kernel(kind, cuda_device):
     """An operator built on the host and moved to the card (no bands) runs
-    every segment sum through the kernel: launches counted, the same bits on
-    two applies, and no further from the exact host apply than twice the
+    every segment sum through the kernel (the f32 cast: through the fused
+    product's kernels, ``schurq_product``): launches counted, the same bits
+    on two applies, and no further from the exact host apply than twice the
     same variant's host apply (1e-9 for the exact operator)."""
     exact = _host_schurq()
     q_host = _OPS[kind](exact)
@@ -870,10 +873,16 @@ def test_schurq_moved_to_card_takes_kernel(kind, cuda_device):
     Y = torch.tensor(np.random.default_rng(1).normal(size=(q.dim, 3)),
                      dtype=q.Q1.dtype)
     n0 = ss.sorted_segment_sum.launches
+    f0 = schurq_product.launches
     a = q.apply(Y.to(cuda_device))
     b = q.apply(Y.to(cuda_device))
     torch.cuda.synchronize()
-    assert ss.sorted_segment_sum.launches >= n0 + 8
+    if kind == "f32 cast":
+        assert schurq_product.launches == f0 + 2
+        assert ss.sorted_segment_sum.launches == n0
+    else:
+        assert ss.sorted_segment_sum.launches >= n0 + 8
+        assert schurq_product.launches == f0
     assert torch.equal(a, b)
     ref = exact.apply(Y.double())
 
@@ -882,6 +891,80 @@ def test_schurq_moved_to_card_takes_kernel(kind, cuda_device):
                      / torch.linalg.norm(ref))
 
     assert rel(a) <= 2.0 * rel(q_host.apply(Y)) + 1e-9
+
+
+# ---- the fused float32 product of SchurQ on the card ---------------------
+
+# a window scene padded with phantom cameras (empty frame segments, the
+# f32 phase's operator shape), and a scene whose landmarks are each seen by
+# all 150 cameras (every landmark segment longer than the plan's CSR_LONG:
+# a block each)
+FUSED_SCENES = {
+    "window, phantom cameras": (make_scene_window, dict(
+        n_cameras=40, n_points=400, obs_per_camera=40, noise=1e-3,
+        long_range=4, seed=0), 44),
+    "long landmarks": (make_scene, dict(
+        n_cameras=150, n_points=40, obs_per_camera=60, noise=1e-3, seed=1),
+        150)}
+FUSED_O = [1, 3, 4, 6, FUSED_COLUMNS + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", FUSED_O)
+@pytest.mark.parametrize("scene", sorted(FUSED_SCENES))
+def test_fused_schurq_product_on_card(scene, o, cuda_device):
+    """The f32 cast of a whole ``SchurQ`` built on the card applies through
+    ``schurq_product``: the seams' bits (the plain twin on the card, whose
+    sums go through ``sorted_segment_sum``), so no further from the exact
+    f64 product than twice the eager f32 product (the seams on the host,
+    same Y) plus 1e-6; the same bits on two calls, and the twin's bits on a
+    column-major Y; one count a product in the wrapper and in
+    ``applies_fused``, no ``sorted_segment_sum`` launch;
+    the exact operator, ``SchurQEdgeF32``, ``SchurQTF`` and a sharded f32
+    operator take the seams and leave both counts alone."""
+    from xmtpu_torch.parallel.mesh import Mesh, shard_schurq
+
+    make, params, n_pad = FUSED_SCENES[scene]
+    sc = make(**params)
+    exact = pad_cameras(SchurQ.build(sc.weights, sc.edges, sc.landmarks,
+                                     device=cuda_device), n_pad)
+    host = pad_cameras(SchurQ.build(sc.weights, sc.edges, sc.landmarks,
+                                    device="cpu"), n_pad)
+    if scene == "long landmarks":
+        assert exact.bounds_l.csr_plan.n_long == exact.n_landmarks
+    q32 = cast_qop(exact, torch.float32)
+    Y = torch.tensor(np.random.default_rng(o).normal(size=(exact.dim, o)))
+    want = host.apply(Y)
+
+    def rel(x):
+        return float(torch.linalg.norm(x.cpu().double() - want)
+                     / torch.linalg.norm(want))
+
+    eager = rel(cast_qop(host, torch.float32).apply(Y.float()))
+    y = Y.float().to(cuda_device)
+    n0, f0, a0 = (ss.sorted_segment_sum.launches, schurq_product.launches,
+                  timer.applies_fused.n)
+    y_view = y.t().contiguous().t()     # the same values, column-major
+    a, b, c = q32.apply(y), q32.apply(y), q32.apply(y_view)
+    torch.cuda.synchronize()
+    assert schurq_product.launches == f0 + 3
+    assert timer.applies_fused.n == a0 + 3
+    assert ss.sorted_segment_sum.launches == n0
+    assert torch.equal(a, b) and a.shape == (exact.dim, o)
+    assert torch.equal(a, schurq_product_plain(q32, y))
+    assert torch.equal(c, schurq_product_plain(q32, y_view))
+    assert rel(a) <= 2.0 * eager + 1e-6, (rel(a), eager)
+    sharded = shard_schurq(Mesh([cuda_device] * 3),
+                           SchurQ.build(sc.weights, sc.edges, sc.landmarks,
+                                        device=cuda_device))
+    for op in (exact, exact.edge_f32(), exact.two_float(),
+               cast_qop(sharded, torch.float32)):
+        op.apply(torch.ones((op.dim, o), dtype=op.inv_q3.dtype,
+                            device=cuda_device))
+    torch.cuda.synchronize()
+    assert schurq_product.launches == f0 + 3
+    assert timer.applies_fused.n == a0 + 3
+    assert ss.sorted_segment_sum.launches > n0
 
 
 # ---- sharded operators (xmtpu_torch.parallel) on the card ----------------

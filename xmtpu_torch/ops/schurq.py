@@ -32,11 +32,27 @@ Here each runs on the whole operator; the camera-sharded operator of
 ``parallel/sharded.py`` runs the same stage code slot by slot through its
 own seams.
 
+The float32 product of a whole ``SchurQ`` on a CUDA card
+(:func:`fused_route`: the f32 phase's and the inner tCG's operator,
+``cast_qop(SchurQ, float32)``) takes no seam for its edge sums:
+:func:`schurq_product` runs them as four hand-written kernels
+(``xmtpu_torch/csrc/schurq.cu``), each a gather and a segment sum by
+landmark or by frame with its edge rows made where they are summed, between
+the seams' two per-camera einsums and their ``VT_inv`` GEMM: eight launches
+where the seams make 36, on an H100 at BAL Ladybug-1723.  The kernels round
+each product and sum as the seams do and add each segment's rows in row
+order, as ``sorted_segment_sum`` does, so the product has the seams' bits.
+Every other product (the exact f64 ``SchurQ``, ``SchurQEdgeF32``,
+``SchurQTF``, the sharded operators, every CPU run) goes through the seams;
+:func:`schurq_product_plain`, the kernels' plain twin, is the seams'
+arithmetic written in the kernels' five stages.
+
 Every product of an operator of this module (``apply``) runs in the span
 ``xm.schurq.apply`` and is counted by its arithmetic in
 ``utils.timer.applies_f64`` (the exact ``SchurQ``), ``applies_tf``
 (``SchurQTF``) or ``applies_f32`` (``SchurQEdgeF32``, and ``SchurQ`` cast
-to float32); a sharded operator counts as the class it shards.
+to float32); a sharded operator counts as the class it shards.  A fused
+product is counted in ``applies_fused`` too.
 
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
@@ -45,18 +61,22 @@ Newton-Schulz) stays selectable.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from xmtpu_torch._device import resolve_device
+from xmtpu_torch.ops.fused_tcg import _check, _on_cpu, _raise_on
 from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
 from xmtpu_torch.ops.segsum import (max_band, planned_offsets,
                                     sorted_segment_sum)
-from xmtpu_torch.utils.timer import applies_f32, applies_f64, applies_tf, span
+from xmtpu_torch.utils.timer import (applies_f32, applies_f64, applies_fused,
+                                     applies_tf, span)
 
 APPLY_SPAN = "xm.schurq.apply"
 
@@ -67,6 +87,10 @@ _SLAB_BUDGET_BYTES = 4 << 30
 # beyond-slab builds use host pair expansion while sum_l c_l^2 stays under
 # this
 _PAIR_BUDGET = 30_000_000
+
+# columns of Y one launch of the fused kernels takes (csrc/schurq.cu MAX_OC);
+# wider products launch each kernel once per chunk of columns
+FUSED_COLUMNS = 8
 
 
 def _seg(vals, ids, bounds, num):
@@ -329,6 +353,8 @@ class SchurQ(QOperator):
 
     @_traced
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
+        if fused_route(type(self), self.inv_q3.dtype, self.inv_q3.device):
+            return schurq_product(self, Y)
         n = self.n_cameras
         Yb = Y.reshape(n, 3, Y.shape[-1])
         out = self._cam(_q1_apply, Yb)
@@ -383,6 +409,165 @@ class SchurQ(QOperator):
             band_l, band_f = _bands(self.l_l, self.f_f)
             q = dataclasses.replace(q, band_l=band_l, band_f=band_f)
         return q
+
+
+# ---- the fused float32 product (module doc) ----
+
+def fused_route(kind, dtype, device) -> bool:
+    """Whether a product of an operator of class ``kind`` whose payload is
+    ``dtype`` on ``device`` takes :func:`schurq_product`: a whole
+    ``SchurQ`` in float32 on a CUDA card.  ``SchurQEdgeF32`` and
+    ``SchurQTF`` (their own two-float arithmetic), the sharded operators of
+    ``parallel/``, float64 and every CPU run take the seams."""
+    return (kind is SchurQ and dtype == torch.float32
+            and device.type == "cuda")
+
+
+def schurq_product_plain(q: SchurQ, Y: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`schurq_product`: ``q.apply(Y)`` in the kernels'
+    five stages with the seams' arithmetic, its segment sums through
+    :func:`_seg` as theirs, so it has the seams' bits on either device."""
+    n, m, o = q.n_cameras, q.n_landmarks, Y.shape[-1]
+    Yb = Y.reshape(n, 3, o)
+    # 1. by landmark: b_B and t
+    b_B = -_seg(_wx_dot_rows(q, Yb.reshape(n, 3 * o)), q.l_l, q.bounds_l, m)
+    t = q.inv_sqrt_q3[:, None] * b_B
+    # 2. by frame: the right-hand side of cameras 1..n-1
+    rhs = (_v1_dot(q, Yb)[1:]
+           + _seg(_cf_f_rows(q, t), q.f_f, q.bounds_f, n)[1:])
+    # 3. the GEMM
+    x_A = (q.VT_inv @ rhs)[: n - 1]
+    # 4. by landmark: x_B, through x_pad = [0; x_A]
+    x_pad = torch.cat([torch.zeros_like(x_A[:1]), x_A], dim=0)
+    x_B = (q.inv_q3[:, None] * b_B + q.inv_sqrt_q3[:, None]
+           * _seg(_cf_l_rows(q, x_pad), q.l_l, q.bounds_l, m))
+    # 5. by frame: the product
+    red = _seg(_wx_outer_rows(q, x_B), q.f_f, q.bounds_f, n)
+    out = _q1_apply(q, Yb) - (_v1_outer(q, x_pad) - red.reshape(n, 3, o))
+    return out.reshape(3 * n, o)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    from xmtpu_torch import _build
+
+    lib = _build.load("schurq")
+    if not getattr(lib, "_xm_typed", False):
+        lib.xm_schurq_forward.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+        lib.xm_schurq_forward.restype = _I
+        lib.xm_schurq_finish.argtypes = [_P] * 15 + [_I] * 5 + [_P]
+        lib.xm_schurq_finish.restype = _I
+        lib._xm_typed = True
+    return lib
+
+
+class _Fused(NamedTuple):
+    """An operator's tensors as :func:`schurq_product`'s kernels read them,
+    checked once: ``fields`` the operator's tensors they were checked on
+    (the cache holds while those are the same objects), and the pointers by
+    name (``longs``: the landmark ordering's long segments, from its host
+    plan, where it has any)."""
+
+    fields: tuple
+    n: int
+    m: int
+    dev: torch.device
+    ptr: dict
+    n_long: int
+    long_rows: int
+
+
+_FIELDS = ("V1", "f_l", "wx_l", "cf_l", "l_f", "wx_f", "cf_f", "bounds_l",
+           "bounds_f", "inv_q3", "inv_sqrt_q3", "VT_inv")
+
+
+def _fused_args(q: SchurQ) -> _Fused:
+    fields = tuple(getattr(q, k) for k in _FIELDS)
+    got = q.__dict__.get("_fused")
+    if got is not None and all(a is b for a, b in zip(got.fields, fields)):
+        return got
+    n, m, E = q.n_cameras, q.n_landmarks, q.f_l.shape[0]
+    dev = q.inv_q3.device
+    f32, i64, i32 = torch.float32, torch.int64, torch.int32
+    shapes = {"V1": ((n, 3), f32),
+              "f_l": ((E,), i64), "wx_l": ((E, 3), f32), "cf_l": ((E,), f32),
+              "l_f": ((E,), i64), "wx_f": ((E, 3), f32), "cf_f": ((E,), f32),
+              "bounds_l": ((m + 1,), i32), "bounds_f": ((n + 1,), i32),
+              "inv_q3": ((m,), f32), "inv_sqrt_q3": ((m,), f32)}
+    ptr = {k: _check(f"schurq_product: {k}", getattr(q, k), sh, dev, dt)
+           for k, (sh, dt) in shapes.items()}
+    plan = getattr(q.bounds_l, "csr_plan", None)
+    n_long, long_rows = 0, np.iinfo(np.int32).max
+    if plan is not None and plan.n_long:
+        if (plan.rows, plan.segments) != (E, m):
+            raise ValueError(f"schurq_product: the landmark plan is for "
+                             f"{plan.rows} rows in {plan.segments} segments, "
+                             f"got {E} in {m}")
+        n_long, long_rows = plan.n_long, plan.long_rows
+        ptr["longs"] = _check("schurq_product: plan", plan.longs,
+                              (n_long, 3), dev, i32)
+    vt = q.VT_inv
+    if (vt.dim() != 2 or vt.shape[0] < n - 1 or vt.shape[1] != n - 1
+            or vt.dtype != f32 or vt.device != dev):
+        raise ValueError(f"schurq_product: VT_inv {tuple(vt.shape)} "
+                         f"{vt.dtype} on {vt.device}")
+    got = _Fused(fields, n, m, dev, ptr, n_long, long_rows)
+    q._fused = got
+    return got
+
+
+def schurq_product(q: SchurQ, Y: torch.Tensor) -> torch.Tensor:
+    """``q.apply(Y)`` of a whole float32 ``SchurQ`` (module doc), with the
+    seams' bits: on the card the seams' two per-camera einsums, the four
+    kernels of ``csrc/schurq.cu`` (``FUSED_COLUMNS`` columns a launch) and
+    the seams' ``VT_inv`` GEMM, counted in ``launches`` (one a product) and
+    in ``utils.timer.applies_fused``; on the host
+    :func:`schurq_product_plain`.  The operator's tensors are checked once
+    (cached on it); a CUDA operator that does not fit raises."""
+    if _on_cpu(q.inv_q3, Y):
+        return schurq_product_plain(q, Y)
+    a = _fused_args(q)
+    n, m, o = a.n, a.m, Y.shape[-1]
+    if Y.numel() != 3 * n * o:
+        raise ValueError(f"schurq_product: Y {tuple(Y.shape)}, expected "
+                         f"({3 * n}, o)")
+    Yb = Y.reshape(n, 3, o)
+    out = torch.empty((3 * n, o), dtype=torch.float32, device=a.dev)
+    if o == 0:
+        return out
+    Yc = Yb.reshape(3 * n, o).contiguous()
+    _check("schurq_product: Y", Yc, (3 * n, o), a.dev)
+    q1y = _q1_apply(q, Yb).contiguous()
+    bA = _v1_dot(q, Yb).contiguous()
+    # b_B | t | x_B (m x o each); rhs on its own, as the seams allocate it
+    scratch = torch.empty(3 * m * o, dtype=torch.float32, device=a.dev)
+    rhs = torch.empty((n - 1, o), dtype=torch.float32, device=a.dev)
+    b_B = scratch.data_ptr()
+    t, x_B = b_B + 4 * m * o, b_B + 8 * m * o
+    p, lib = a.ptr, _lib()
+    ints = (n, m, o, a.n_long, a.long_rows)
+    with torch.cuda.device(a.dev):     # ctypes launches on the current device
+        stream = torch.cuda.current_stream(a.dev).cuda_stream
+        _raise_on(lib.xm_schurq_forward(
+            Yc.data_ptr(), bA.data_ptr(), p["f_l"], p["wx_l"], p["bounds_l"],
+            p.get("longs"), p["l_f"], p["cf_f"], p["bounds_f"],
+            p["inv_sqrt_q3"], b_B, t, rhs.data_ptr(), *ints, stream),
+            "schurq_product")
+        x_A = (q.VT_inv @ rhs)[: n - 1]
+        _raise_on(lib.xm_schurq_finish(
+            q1y.data_ptr(), p["V1"], x_A.data_ptr(), p["f_l"], p["cf_l"],
+            p["bounds_l"], p.get("longs"), p["l_f"], p["wx_f"],
+            p["bounds_f"], p["inv_q3"], p["inv_sqrt_q3"], b_B, x_B,
+            out.data_ptr(), *ints, stream), "schurq_product")
+    schurq_product.launches += 1
+    applies_fused.n += 1
+    return out
+
+
+schurq_product.launches = 0
 
 
 def pad_cameras(Q, n_pad: int):

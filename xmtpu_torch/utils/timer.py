@@ -31,11 +31,13 @@ region's control loop (``solver/trust_region._fetch``,
 ``ops/fused_tcg._read_carry``), :data:`graph_replays` the replays of its
 captured CUDA graphs (``solver/graph_step.py``), :data:`f32_nonfinite` the
 mixed ladder's f32 phases ended at a non-finite reading
-(``solver/trust_region._nonfinite``), and :data:`applies_f64`,
+(``solver/trust_region._nonfinite``), :data:`applies_f64`,
 :data:`applies_tf` and :data:`applies_f32` the implicit operator's
 products: the exact ``SchurQ`` in float64, the two-float ``SchurQTF``, and
 those in float32 arithmetic (``SchurQEdgeF32``'s edge sums, ``SchurQ``
-cast to float32).  All only grow, and a reader takes the difference over
+cast to float32), and :data:`applies_fused` those of the float32 ones that
+ran as the fused kernels (``ops/schurq.schurq_product`` on a card).  All
+only grow, and a reader takes the difference over
 the stretch it measures.  :func:`memory_allocated` and
 :func:`max_memory_allocated` read the card's allocator while spans are on.
 ``solve_arrays`` puts the counts and readings, per rank, into
@@ -106,6 +108,9 @@ f32_nonfinite = ReadCounter()
 applies_f64 = ReadCounter()
 applies_tf = ReadCounter()
 applies_f32 = ReadCounter()
+# the float32 products among them that ran as the fused kernels
+# (ops/schurq.py schurq_product)
+applies_fused = ReadCounter()
 # the depth of open leaf spans (spanned(..., leaf=True)): no span opens
 # inside one
 _leaves = ReadCounter()
