@@ -3065,7 +3065,7 @@ def run_parallel(dev, counts, card, primal_B, Q_C) -> dict:
         f"{path_a}; wall {wall_a:.2f} s; {busy_text(work_a, box['s'])}; "
         f"launches {counts['P dense']}; {card}")
     if not (res_a.certified and res_a.rank == 3 and res_a.status == 1
-            and not res_a.stages[-1]["fused"] and path_a != "dense"):
+            and path_a != "dense"):
         raise AssertionError("phase 12 (a): not certified at rank 3 by the "
                              "matvec certificate")
     if abs(res_a.primal - PRIMAL_B) > RTOL_PRIMAL * PRIMAL_B:
@@ -3486,7 +3486,7 @@ def run(dev, card: str) -> int:
     for st in res_Bi.stages:
         log(f"[smoke] scene B implicit stage {st}")
     if not (res_Bi.certified and res_Bi.rank == 3 and res_Bi.status == 1
-            and not res_Bi.stages[-1]["fused"]):
+            and res_Bi.stages[-1]["cert_path"] != "dense"):
         raise AssertionError("scene B implicit: not certified at rank 3 by "
                              "the matvec certificate")
     if abs(res_Bi.primal - PRIMAL_B_IMPLICIT) > (RTOL_IMPLICIT

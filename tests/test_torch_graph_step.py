@@ -1,11 +1,11 @@
-"""The f32 outer step as CUDA graphs (``solver/graph_step.py``) against the
-eager step (``trust_region._outer_step``).
+"""The f32 outer step's segments as CUDA graphs (``solver/graph_step.py``)
+against the eager segments, both through ``trust_region._outer_step``.
 
-The graph route replays the eager step's own segments on static buffers, so
-both routes must give the same bits.  On the CPU the segments run eagerly
-(``PhaseGraphs`` on CPU tensors) against ``_outer_step`` with the f32 tCG
-routed through ``fused_tcg.inner_tcg_fused`` as on the card; on the card the
-captured route runs against ``_outer_step`` itself, and the profiler's
+The graph provider replays the eager provider's own segments on static
+buffers, so both must give the same bits.  On the CPU the segments run
+eagerly (``PhaseGraphs`` on CPU tensors) against ``EagerSegments`` with the
+f32 tCG routed through ``fused_tcg.inner_tcg_fused`` as on the card; on the
+card the captured route runs against the eager one, and the profiler's
 ``tcg_step`` kernels against the wrappers' count.
 
 This file imports neither JAX nor ``xmtpu``, so it also runs on the machine
@@ -14,6 +14,7 @@ with the card:
     python -m pytest tests/test_torch_graph_step.py --noconftest -q
 """
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -60,9 +61,13 @@ def _phase(scene, o, device, seed=1):
 
 def _eager(q32, st, lam, gradtol, delta_bar, cfg, kmax=100):
     while not st.done and st.k < kmax:
-        st = tr._outer_step(q32.apply, st, lam, gradtol, delta_bar, cfg,
-                            q32.diag_blocks())
+        st = tr._outer_step(_eager_segments(q32, lam, cfg), st, gradtol,
+                            delta_bar)
     return st
+
+
+def _eager_segments(q32, lam, cfg):
+    return tr.EagerSegments(q32.apply, lam, cfg, q32.diag_blocks())
 
 
 def _assert_same(a, b):
@@ -129,8 +134,9 @@ def test_route_rule():
 @pytest.mark.parametrize("o", [3, 4])
 @pytest.mark.parametrize("variant", ["dense", "split"])
 def test_segments_are_the_eager_step(o, variant, monkeypatch):
-    """A small scene's whole f32 phase: the segments run eagerly on the
-    static buffers give ``_outer_step``'s bits, step by step."""
+    """A small scene's whole f32 phase through the one ``_outer_step``:
+    the graph provider's segments, run eagerly on its static buffers, give
+    the eager provider's bits, step by step."""
     if variant == "split":
         # the split variant at a host size: no n passes the dense gate
         monkeypatch.setattr(ft, "DENSE_MAX_N", 0)
@@ -138,12 +144,12 @@ def test_segments_are_the_eager_step(o, variant, monkeypatch):
     q32, st0, lam, gradtol, delta_bar, cfg = _phase(SMALL, o, "cpu")
     launches = (ft.tcg_step.launches, ft.tcg_step_dense.launches)
     a, b = st0, st0
-    with PhaseGraphs(q32, st0, lam, cfg) as phase:
+    eager = _eager_segments(q32, lam, cfg)
+    with contextlib.closing(PhaseGraphs(q32, st0, lam, cfg)) as phase:
         assert not phase.capture
         while not a.done and a.k < 100:
-            a = tr._outer_step(q32.apply, a, lam, gradtol, delta_bar, cfg,
-                               q32.diag_blocks())
-            b = phase.step(b, gradtol, delta_bar)
+            a = tr._outer_step(eager, a, gradtol, delta_bar)
+            b = tr._outer_step(phase, b, gradtol, delta_bar)
             _assert_same(a, b)
     assert a.done and a.k > 5 and a.total_inner > a.k
     assert b.R is not st0.R      # the phase stepped on its own buffers

@@ -32,7 +32,8 @@ def test_scene_a_certifies_rank4_mixed():
         assert r.certified and r.rank == 4 and r.status == 1
     np.testing.assert_allclose(got.primal, ref.primal, rtol=1e-5)
     np.testing.assert_allclose(got.primal, 66.46483, rtol=1e-4)
-    assert got.stages[-1]["fused"] and got.stages[-1]["cert_s"] > 0.0
+    assert got.stages[-1]["cert_path"] == "dense"
+    assert got.stages[-1]["cert_s"] > 0.0
 
 
 def test_mixed_through_the_fused_loop_on_the_host(monkeypatch):

@@ -132,8 +132,8 @@ def _one_outer_step(Q: QOperator, R, s_ex, lam=0.0, gradtol=1e-8):
         R=R, s_ex=s_ex, loss=loss, delta=delta_bar / dt(8.0),
         shrink_count=0, endreason=tr.ER_MAX_INNER, k=0, total_inner=0,
         gradnorm=dt(np.inf), done=False, done_reason=tr.RUNNING)
-    out = tr._outer_step(Q.apply, st, dt(lam), dt(gradtol), delta_bar,
-                         tr.TRConfig())
+    out = tr._outer_step(tr.EagerSegments(Q.apply, dt(lam), tr.TRConfig()),
+                         st, dt(gradtol), delta_bar)
     return out.R, out.s_ex, out.loss
 
 

@@ -1,5 +1,5 @@
-"""The f32 outer step as CUDA graphs, with ``tcg_step`` launched between
-replays.
+"""The f32 outer step's segments as CUDA graphs, with ``tcg_step`` launched
+between replays.
 
 Within one chunk of the f32 phase on a whole ``DenseQ`` (the route that
 ``trust_region.graph_route`` picks) the shapes are fixed, and the step works
@@ -20,12 +20,13 @@ host reads is captured once and replayed at every outer step:
 
 ``tcg_step`` and ``tcg_step_dense`` stay outside the graphs: every launch
 goes through its wrapper, one call a launch, and the loop through
-``fused_tcg.inner_tcg_fused``.  The host's scalar logic
-(``trust_region._step_decide``), its reads and the spans are
-``trust_region._outer_step``'s, and the segments are the functions it calls,
-so a replay runs the eager step's kernels on the eager step's data and gives
-its bits.  On the CPU the segments run eagerly on the same buffers (the
-tests' mirror of the route).
+``fused_tcg.inner_tcg_fused``.  :class:`PhaseGraphs` is the second of
+``trust_region._outer_step``'s two segment providers, beside
+``trust_region.EagerSegments``: the step's host reads, checks, spans and
+scalar logic are that function's alone, and the segments are the functions
+the eager provider calls, so a replay runs the eager step's kernels on the
+eager step's data and gives its bits.  On the CPU the segments run eagerly
+on the same buffers (the tests' mirror of the route).
 
 The graphs hold the pointer of the f32 operator, which every solve casts
 anew, so they live for one chunk: each is captured at its first use and all
@@ -81,15 +82,16 @@ _warm = set()
 
 
 class PhaseGraphs:
-    """One chunk's outer steps on static buffers (see the module's
-    docstring); ``lam`` is the host scalar of the working dtype."""
+    """One chunk's outer-step segments on static buffers, each captured
+    once and replayed (see the module's docstring): the provider
+    ``trust_region._outer_step`` takes on ``graph_route``'s route.  ``lam``
+    is the host scalar of the working dtype."""
 
     def __init__(self, qop, st: tr.TRState, lam, cfg: tr.TRConfig):
         dev = st.R.device
         self.qmul = qop.apply
         self.Cdiag = qop.diag_blocks()
         self.lam, self.lam_f, self.cfg = lam, float(lam), cfg
-        self.dt = tr.np_dtype(st.R.dtype)
         self.capture = dev.type == "cuda"
         # the state buffers: copies, since the chunk's state may alias a
         # caller's tensors
@@ -162,53 +164,36 @@ class PhaseGraphs:
         self.capture_s += time.perf_counter() - t0
         return g
 
-    # ---- one outer step
-    def step(self, st: tr.TRState, gradtol, delta_bar) -> tr.TRState:
-        """``trust_region._outer_step`` on the state buffers: the same
-        reads, spans and scalar logic.  ``gradtol`` and ``delta_bar`` are
-        host scalars of the working dtype."""
-        dt = self.dt
-        st = st._replace(R=self.R, s_ex=self.s_ex, QsR=self.QsR)
-        self._run("start")
-        CsR, egR, egs, pgR, pgs, gn = self.grad
-        (gradnorm,) = tr._fetch(gn, dt=dt)
-        end = tr._nonfinite(st, gradnorm)
-        if end is not None:
-            return end
-        if gradnorm < gradtol:
-            return st._replace(gradnorm=gradnorm, done=True,
-                               done_reason=tr.DONE_GRADTOL)
+    # ---- the provider's segments, as trust_region._outer_step calls them
+    def state(self, st: tr.TRState) -> tr.TRState:
+        return st._replace(R=self.R, s_ex=self.s_ex, QsR=self.QsR)
 
+    def start(self, st: tr.TRState):
+        self._run("start")
+        return self.grad
+
+    def tcg(self, st: tr.TRState, grad, gradnorm):
         self.cfgsc[fused_tcg.C_DELTA].fill_(float(st.delta))
         if self.loop is None or not self.capture:
             self.loop = fused_tcg.bind_loop(
                 self.qmul, self.args,
                 product=functools.partial(self._run, "product"))
-        with span("xm.tr.tcg"):
-            endreason, iters = fused_tcg.inner_tcg_fused(
-                self.qmul, self.R, self.s_ex, CsR, egR, egs, pgR, pgs,
-                gradnorm, st.delta, self.lam, self.cfg, None, self.loop)[4:]
+        return fused_tcg.inner_tcg_fused(
+            self.qmul, self.R, self.s_ex, *grad[:5], gradnorm, st.delta,
+            self.lam, self.cfg, None, self.loop)
 
+    def end(self, st: tr.TRState, grad, v):
+        """The two losses, then the state buffers that :meth:`accept`
+        fills; the segment ``_end`` reads the loop's result from the
+        loop's arguments, not from ``v``."""
         self._run("end")
-        loss_qu, loss_new = tr._fetch(*self.out[:2], dt=dt)
-        end = tr._nonfinite(st, loss_qu, loss_new)
-        if end is not None:
-            return end
-        keep_new, st = tr._step_decide(
-            st, self.cfg, delta_bar, gradnorm, endreason, iters, loss_qu,
-            loss_new, self.R, self.s_ex, self.QsR)
-        if keep_new:
-            self._run("accept")
-        return st
+        return self.out[:2] + (self.R, self.s_ex, self.QsR)
+
+    def accept(self) -> None:
+        self._run("accept")
 
     def close(self) -> None:
         """Releases the graphs and every buffer they allocated; the state
         buffers stay with the states that hold them."""
         self.graphs.clear()
         self.loop = self.grad = self.args = self.out = None
-
-    def __enter__(self) -> "PhaseGraphs":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()

@@ -11,24 +11,28 @@ per camera by the scales.
 Reference-faithful details kept here: ``gradtol /= 10`` whenever a rank
 stops on the gradient norm; ``solve_with_init`` warm-starts only the scales;
 status codes 1 = certified, 2 = max rank reached uncertified, -2 = escape
-linesearch failed.  The mixed ladder's f32 phase runs at most one chunk
-inside the stage (``kmax32``); when it outruns it, the stage falls back to
-the unfused ladder exactly as the reference does, and the f64 polish starts
-from the f32 phase's final trust radius (``delta0``).
+linesearch failed.
 
-Every dense rank takes the reference's CPU route on both devices: the stage
-and its Cholesky-probe certificate run back to back (``fused_ok`` at all
-sizes).  An implicit operator runs its stages through the unfused solvers,
-on the two-float operator with ``edge_tf`` / ``edge_f32`` (stopping at the
-first zero-accept collapse cycle, the final primal re-read through the
-exact operator), and certifies through the matvec flow on the exact one.
-So does a sharded dense operator (``parallel/``): it has no whole matrix
-for the Cholesky probe, and its f32 cast is made slab by slab.
+Every rank takes one path, :func:`_rank`, on three operators that
+``solve_arrays`` chooses once: the exact one, the stage's and the f32 cast
+of the exact one.  The reference fuses a dense rank's stage and its
+certificate into one device program; here the loop runs on the host, so a
+rank is its steps in order: the escape linesearch, the mixed ladder's f32
+phase, the f64 stage (``trust_region._ladder``, which also holds the rule
+for the stage's first radius), the exact re-read of the primal after a
+fast stage, and the certificate (``certificate.certify``: the Cholesky
+probe on a whole dense matrix, the matvec flow on the rest).  An implicit
+operator's stages run on its two-float form with ``edge_tf`` or its
+mixed-edge form with ``edge_f32``, stopping at the first zero-accept
+collapse cycle; a sharded dense operator (``parallel/``) has no whole
+matrix for the Cholesky probe, and its f32 cast is made slab by slab.
 """
+
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import NamedTuple, Optional
@@ -40,7 +44,7 @@ from xmtpu_torch._device import resolve_device
 from xmtpu_torch.io.bin_format import load_matrix_from_bin, save_matrix_to_bin
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.solver import trust_region as tr
-from xmtpu_torch.solver.certificate import certify
+from xmtpu_torch.solver.certificate import CertificateResult, certify
 from xmtpu_torch.utils.timer import (applies_f32, applies_f64,
                                      applies_fused, applies_tf,
                                      f32_nonfinite, graph_replays,
@@ -110,10 +114,8 @@ class _RankLog:
 
     @contextlib.contextmanager
     def cert(self):
-        """The span ``xm.cert``; the trust region ended where the rank's
-        first certificate starts."""
-        if "peak_bytes" not in self.mem:
-            self._peak("peak_bytes")
+        """The span ``xm.cert``; the trust region ended where it starts."""
+        self._peak("peak_bytes")
         with span("xm.cert"):
             yield
         self._peak("cert_peak_bytes")
@@ -125,206 +127,67 @@ class _RankLog:
                     **self.mem)
 
 
-def _fail_state(R0, s_ex0) -> tr.TRState:
-    """The state a failed escape linesearch leaves (primal = -1)."""
-    return tr.TRState(
-        R=R0, s_ex=s_ex0, loss=np.float64(-1.0), QsR=torch.zeros_like(R0),
-        delta=np.float64(0.0), shrink_count=0, endreason=tr.ER_MAX_INNER,
-        k=0, total_inner=0, gradnorm=np.float64(np.inf), done=True,
-        done_reason=tr.DONE_LINESEARCH_FAIL)
+class _Rank(NamedTuple):
+    """One rank's outcome: the trust region over both phases (its primal
+    re-read through the exact operator after a fast stage), the
+    certificate (None where none ran) and its wall seconds."""
+    res: tr.TRResult
+    cert: Optional[CertificateResult]
+    cert_s: float
 
 
-def _stage_certify_fused(C, R0, s_ex0, lam, gradtol, gradtol32, delta_bar,
-                         bound, cfg: tr.TRConfig, kmax: int, C32=None,
-                         cfg32: Optional[tr.TRConfig] = None, kmax32: int = 0,
-                         inner32: bool = False, with_cert: bool = True,
-                         with_escape: bool = False, esc_v=None, step0=1.0,
-                         *, log: _RankLog):
-    """One rank: (escape linesearch ->) (f32 phase ->) f64 stage -> dense
-    'auto' certificate, the certificate only when the stage finished inside
-    ``kmax``.  Returns ``(st, st32, sR, Z, dual, psd, lam_min_est,
-    lam_min_lb, v_inv, cert_s)`` with ``cert_s`` the certificate's wall
-    seconds; ``st`` is None when the f32 phase outran ``kmax32`` (the
-    caller then runs the unfused ladder)."""
-    from xmtpu_torch.solver.certificate import _build_z_dual_psd
+def _rank(Cq, stage_q, q32, R0, s_ex0, lam, gradtol, cfg: tr.TRConfig, *,
+          mixed: bool, escape_dir, v0, with_cert: bool, resume,
+          checkpoint_path, ckpt_meta, verbose, log: _RankLog) -> _Rank:
+    """One rank of the staircase, on every route: the escape linesearch
+    along ``escape_dir`` on the stage operator ``stage_q``, with ``mixed``
+    the f32 phase on ``q32``, the f64 stage on ``stage_q``
+    (``trust_region._ladder``); the primal re-read through the exact
+    ``Cq`` where the stage's operator is a fast one; then, ``with_cert``
+    and unless the linesearch failed, the certificate on ``Cq``.
+    ``resume``: a ``TRCheckpoint`` inside this rank, whose f64 stage is
+    continued instead, as the reference does (with neither the collapse
+    stop nor the re-read)."""
+    from xmtpu_torch.ops.qop import DenseQ
+    from xmtpu_torch.solver.checkpoint import tr_state_from_checkpoint
 
-    ls_ok = True
-    R_start = R0
-    if with_escape:
-        R_ls, _f, ls_ok = tr._escape_linesearch(C, R0, s_ex0, esc_v, step0,
-                                                lam, cfg)
-        R_start = R_ls if ls_ok else R0
-
-    st32 = None
-    if not ls_ok:
-        st = _fail_state(R0, s_ex0)
-        if cfg32 is not None:
-            st32 = st
+    dev = R0.device
+    if resume is not None:
+        st = tr_state_from_checkpoint(resume, Q=stage_q, device=dev)
+        n, _, o = st.R.shape
+        res = tr.continue_chunks(
+            stage_q, st, resume.lam, gradtol,
+            float(np.sqrt(n * (3 * o - 6) + n - 1)),
+            dataclasses.replace(cfg, stop_on_collapse=False, history=0),
+            Q32=q32 if cfg.inner_f32 else None, k_done=resume.k_done,
+            deadline=time.monotonic() + cfg.max_time,
+            checkpoint_path=checkpoint_path, ckpt_meta=ckpt_meta)
     else:
-        R1, s1, delta0 = R_start, s_ex0, None
-        if cfg32 is not None:
-            f32 = torch.float32
-            st32 = tr._init_state(C32, R_start.to(f32), s_ex0.to(f32),
-                                  np.float32(lam), np.float32(delta_bar),
-                                  cfg32)
-            st32 = tr._run_chunk(C32, st32, lam, gradtol32, delta_bar,
-                                 cfg32, kmax32)
-            if not st32.done:
-                return (None, st32) + (None,) * 7 + (0.0,)
-            # f64 polish start: re-orthonormalize the f32 iterate in f64
-            R1 = mf.mgs_rows(st32.R.to(torch.float64))
-            s1 = st32.s_ex.to(torch.float64).clone()
-            s1[0] = 1.0
-            # polish warm-start radius: the f32 phase's final radius,
-            # floored so a hard f32 collapse cannot stall the f64 start
-            # (the default start where a non-finite radius ended the phase)
-            delta0 = (max(np.float64(st32.delta), delta_bar * 1e-3)
-                      if np.isfinite(st32.delta) else None)
-        st = tr._init_state(C, R1, s1, lam, delta_bar, cfg, delta0)
-        st = tr._run_chunk(C, st, lam, gradtol, delta_bar, cfg, kmax,
-                           C32 if inner32 else None)
-    sR = _scaled_factor(st.R, st.s_ex)
-    if not with_cert or not (st.done and ls_ok):
-        return (st, st32, sR) + (None,) * 6 + (0.0,)
-    with log.cert():
-        t0 = time.perf_counter()
-        Z, dual, psd, lme, lmlb, v_inv = _build_z_dual_psd(C.C, sR, lam,
-                                                           bound)
-        cert_s = time.perf_counter() - t0
-    return (st, st32, sR, Z, dual, psd, lme, lmlb, v_inv, cert_s)
-
-
-def _stage_fused(Cq, C32q, R0, s_ex0, lam, gradtol, max_time, verbose,
-                 precision: str, bound: float, v0,
-                 inner_f32: bool = False, with_cert: bool = True,
-                 escape_dir=None, linesearch_step: float = 0.0,
-                 chunk: int = 100, checkpoint_path=None, ckpt_meta=None,
-                 *, log: _RankLog):
-    """Run one staircase rank through :func:`_stage_certify_fused`.
-    Returns ``(res, scalars, cert, cert_s)``; ``cert`` is None when the
-    stage did not finish inside its chunk (the caller certifies
-    separately), else ``cert_s`` is its wall seconds."""
-    from xmtpu_torch.solver import certificate as cert_mod
-
-    n, _, o = R0.shape
-    dim = n * (3 * o - 6) + n - 1
-    delta_bar = float(np.sqrt(dim))
-    cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32, chunk=chunk,
-                      history=chunk if int(verbose) >= 2 else 0)
-    if precision == "mixed":
-        cfg32, gradtol32 = cfg.f32_ladder(gradtol)
-        kmax32 = cfg32.chunk
-    else:
-        cfg32, gradtol32, kmax32 = None, 0.0, 0
-
-    with_escape = escape_dir is not None and linesearch_step != 0.0
-    deadline = time.monotonic() + max_time  # stage wall budget incl. fused run
-    st, st32, sR, Z, dual, psd, lme, lmlb, v_inv, cert_s = \
-        _stage_certify_fused(
-        Cq, R0, s_ex0, lam, gradtol, gradtol32, delta_bar, bound, cfg,
-        cfg.chunk, C32q, cfg32, kmax32, inner32=inner_f32,
-        with_cert=with_cert, with_escape=with_escape, esc_v=escape_dir,
-        step0=float(linesearch_step), log=log)
-    if st32 is not None:
-        k32, i32, done32 = st32.k, st32.total_inner, st32.done
-    else:
-        k32, i32, done32 = 0, 0, True
-
-    if st is not None and st.done_reason == tr.DONE_LINESEARCH_FAIL:
-        # the reference's "linesearch failed! BM stopped!" (primal = -1)
-        res = tr.TRResult(st.R, st.s_ex, float(st.loss), float(st.gradnorm),
-                          st.k, st.total_inner, st.done_reason)
-        return res, (-1.0, st.done_reason, 0, 0), None, 0.0
-
-    if not done32:
-        # the f32 phase outran its chunk: run it to its natural stall with
-        # chunked continuation, then polish and certify separately (the
-        # unfused ladder from here, as in the reference)
-        res32 = tr.continue_chunks(C32q, st32, lam, gradtol32, delta_bar,
-                                   cfg32, k_done=k32, deadline=deadline)
-        R1 = mf.mgs_rows(res32.R.to(torch.float64))
-        s1 = res32.s_ex.to(torch.float64).clone()
-        s1[0] = 1.0
-        res = tr.trust_region_solve(Cq, R1, s1, lam, gradtol, cfg=cfg,
-                                    checkpoint_path=checkpoint_path,
-                                    ckpt_meta=ckpt_meta,
-                                    verbose=int(verbose), device=R1.device)
-        outer_c = res.outer_iters + res32.outer_iters
-        inner_c = res.total_inner + res32.total_inner
-        if verbose:
-            print(f"[xm] rank {o}: primal={res.primal:.6e} "
-                  f"outer={outer_c} inner={inner_c} reason={res.done_reason}")
-        return res, (res.primal, res.done_reason, outer_c, inner_c), None, 0.0
-
-    if not st.done:
-        # f64 stage outran its chunk: continue, the caller certifies
-        if int(verbose) >= 2 and st.hist is not None:
-            tr.print_history(st.hist, 0, st.k)
-        res = tr.continue_chunks(Cq, st, lam, gradtol, delta_bar, cfg,
-                                 Q32=C32q if inner_f32 else None,
-                                 k_done=st.k, deadline=deadline,
-                                 checkpoint_path=checkpoint_path,
-                                 ckpt_meta=ckpt_meta, verbose=int(verbose))
-        if verbose:
-            print(f"[xm] rank {o}: primal={res.primal:.6e} "
-                  f"outer={res.outer_iters + k32} "
-                  f"inner={res.total_inner + i32} reason={res.done_reason}")
-        scal = (res.primal, res.done_reason, res.outer_iters + k32,
-                res.total_inner + i32)
-        return res, scal, None, 0.0
-
-    loss_v = float(st.loss)
-    res = tr.TRResult(st.R, st.s_ex, loss_v, float(st.gradnorm), st.k,
-                      st.total_inner, st.done_reason)
-    if int(verbose) >= 2 and st.hist is not None:
-        tr.print_history(st.hist, 0, st.k)
+        res = tr._ladder(stage_q, R0, s_ex0, lam, gradtol, cfg, q32,
+                         mixed=mixed, warm=isinstance(Cq, DenseQ),
+                         escape_dir=escape_dir,
+                         checkpoint_path=checkpoint_path,
+                         ckpt_meta=ckpt_meta, verbose=int(verbose))
+        if (stage_q is not Cq
+                and res.done_reason != tr.DONE_LINESEARCH_FAIL):
+            # the fast operator's absolute noise (~eta ||sR||^2) shows
+            # against a near-zero primal (it can even read negative):
+            # re-read the objective through the EXACT operator.  The
+            # linesearch-fail sentinel keeps its -1
+            res = res._replace(primal=float(mf.objective(
+                Cq.apply, res.R, res.s_ex, float(lam))))
     if verbose:
-        print(f"[xm] rank {o}: primal={loss_v:.6e} "
-              f"gradnorm={float(st.gradnorm):.3e} outer={st.k + k32} "
-              f"inner={st.total_inner + i32} reason={st.done_reason}")
-    scal = (loss_v, st.done_reason, st.k + k32, st.total_inner + i32)
-    if not with_cert:
-        return res, scal, None, 0.0
-    with log.cert():
-        t0 = time.perf_counter()
-        certified, v, lam_min, gap, dual_out = \
-            cert_mod.finish_auto_certificate(Z, n, bound, loss_v, dual, psd,
-                                             lme, lmlb, v_inv, v0=v0)
-        cert_s += time.perf_counter() - t0
-    if verbose:
-        print(f"[certify] primal={loss_v:.6e} dual={dual_out:.6e} "
-              f"gap={gap:.3e} lam_min={lam_min:.3e} "
-              f"certified={bool(certified)}")
-    cert = cert_mod.CertificateResult(bool(certified), v, lam_min, gap,
-                                      dual_out, loss_v)
-    return res, scal, cert, cert_s
-
-
-def _stage(C, R0, s_ex0, lam, gradtol, max_time, escape_dir, verbose,
-           precision: str = "f64", inner_f32: bool = False, Q32=None,
-           checkpoint_path=None, ckpt_meta=None,
-           stop_on_collapse: bool = False, chunk: Optional[int] = None):
-    """One rank through the unfused solvers (no in-stage certificate)."""
-    chunk_eff = chunk or tr.auto_chunk(R0.shape[0])
-    cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32,
-                      chunk=chunk_eff, stop_on_collapse=stop_on_collapse,
-                      history=chunk_eff if int(verbose) >= 2 else 0)
-    kw = {"verbose": int(verbose), "device": R0.device}
-    if precision == "mixed":
-        solver = tr.trust_region_solve_mixed
-    else:
-        solver = tr.trust_region_solve
-        kw.update(checkpoint_path=checkpoint_path, ckpt_meta=ckpt_meta)
-    if escape_dir is None:
-        res = solver(C, R0, s_ex0, lam, gradtol, cfg=cfg, Q32=Q32, **kw)
-    else:
-        res = solver(C, R0, s_ex0, lam, gradtol, escape_dir=escape_dir,
-                     linesearch_step=1.0, cfg=cfg, Q32=Q32, **kw)
-    if verbose:
-        print(f"[xm] rank {R0.shape[2]}: primal={res.primal:.6e} "
+        print(f"[xm] rank {res.R.shape[2]}: primal={res.primal:.6e} "
               f"gradnorm={res.gradnorm:.3e} outer={res.outer_iters} "
               f"inner={res.total_inner} reason={res.done_reason}")
-    return res
+    if not with_cert or res.done_reason == tr.DONE_LINESEARCH_FAIL:
+        return _Rank(res, None, 0.0)
+    with log.cert():
+        t0 = time.perf_counter()
+        cert = certify(Cq, _scaled_factor(res.R, res.s_ex), lam, res.primal,
+                       verbose=verbose, v0=v0, fast="auto", device=dev)
+        cert_s = time.perf_counter() - t0
+    return _Rank(res, cert, cert_s)
 
 
 @spanned("xm.solve")
@@ -360,35 +223,35 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
         host.
     """
     from xmtpu_torch.ops.qop import DenseQ, as_qop, cast_qop
-    from xmtpu_torch.solver.certificate import _min_eig_bound
     from xmtpu_torch.solver.checkpoint import (StaircaseCheckpoint,
                                                TRCheckpoint, load_checkpoint,
-                                               save_checkpoint,
-                                               tr_state_from_checkpoint)
+                                               save_checkpoint)
 
     dev = resolve_device(device)
     mem_base = memory_allocated(dev)
     Cq = as_qop(C, device=dev)
-    dense = isinstance(Cq, DenseQ)
-    if dense and Cq.C.dtype != torch.float64:
+    if isinstance(Cq, DenseQ) and Cq.C.dtype != torch.float64:
         Cq = DenseQ(Cq.C.to(torch.float64), Cq.psd_hint)
     n = Cq.dim // 3
-    want32 = precision == "mixed" or inner_f32
-    # a dense matrix, whole or in row slabs (its f32 cast made slab by slab)
-    rows = Cq.dense_rows
-    C32q = cast_qop(Cq, torch.float32) if rows and want32 else None
-    stage_q, stage_q32 = Cq, None
-    if edge_tf and not rows:
+    # the rank's operators, chosen once: the exact one (the certificate,
+    # the final primal); the stage's, a fast form of an implicit operator
+    # where one is asked for; the exact one's f32 cast for the f32 phase
+    # and the f32 tCG products (single product terms, no hi/lo double
+    # work; a dense matrix in row slabs is cast slab by slab)
+    stage_q = Cq
+    if edge_tf and not Cq.dense_rows:
         stage_q = Cq.two_float(pallas=edge_pallas)
-    elif edge_f32 and not rows:
+    elif edge_f32 and not Cq.dense_rows:
         stage_q = Cq.edge_f32(pallas=edge_pallas)
-    if stage_q is not Cq and want32:
-        # inner tCG / f32 phase cast from the BASE operator: single product
-        # terms, no hi/lo double work
-        stage_q32 = cast_qop(Cq, torch.float32)
-    bound = _min_eig_bound(n)
-    gradtol = float(tol)
+    mixed = precision == "mixed"
+    q32 = cast_qop(Cq, torch.float32) if mixed or inner_f32 else None
     chunk_n = chunk if chunk is not None else tr.auto_chunk(n)
+    # a fast operator's f64 stage stops at its first zero-accept collapse
+    # cycle (its noise floor), as every f32 phase does
+    cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32, chunk=chunk_n,
+                      stop_on_collapse=stage_q is not Cq,
+                      history=chunk_n if int(verbose) >= 2 else 0)
+    gradtol = float(tol)
     f64 = torch.float64
 
     o = 3
@@ -428,104 +291,41 @@ def solve_arrays(C, max_rank: int = 10, tol: float = 1e-6, lam: float = 0.0,
             # one rank, from the clock of stage_s through its certificate
             t_stage0 = time.perf_counter()
             log = _RankLog(dev, mem_base)
-            fused_ok = dense and precision in ("f64", "mixed")
-            cert_pre, cert_s = None, 0.0
-            meta = dict(rank=o, gradtol=gradtol, lam=float(lam))
-            if mid_resume is not None:
-                # finish the interrupted rank from its chunk-boundary state
-                st = tr_state_from_checkpoint(mid_resume, Q=stage_q,
-                                              device=dev)
-                dim = n * (3 * o - 6) + n - 1
-                delta_bar = float(np.sqrt(dim))
-                cfg = tr.TRConfig(max_time=max_time, inner_f32=inner_f32,
-                                  chunk=chunk_n)
-                res = tr.continue_chunks(
-                    stage_q, st, mid_resume.lam, gradtol, delta_bar, cfg,
-                    Q32=(C32q if rows else stage_q32) if inner_f32 else None,
-                    k_done=mid_resume.k_done,
-                    deadline=time.monotonic() + max_time,
-                    checkpoint_path=mid_path, ckpt_meta=meta)
-                primal_v, reason_v = res.primal, res.done_reason
-                outer_v, inner_v = res.outer_iters, res.total_inner
-                if verbose:
-                    print(f"[xm] rank {o} (resumed at outer "
-                          f"{mid_resume.k_done}): primal={primal_v:.6e}")
-                mid_resume = None
-            elif fused_ok:
-                res, scal, cert_pre, cert_s = _stage_fused(
-                    Cq, C32q, R0, s_ex, lam, gradtol, max_time, verbose,
-                    precision, bound, prev_escape_v, inner_f32=inner_f32,
-                    with_cert=not rank3_only, escape_dir=escape_dir,
-                    linesearch_step=(1.0 if escape_dir is not None else 0.0),
-                    chunk=chunk_n, checkpoint_path=mid_path, ckpt_meta=meta,
-                    log=log)
-                primal_v, reason_v, outer_v, inner_v = scal
-            else:
-                res = _stage(stage_q, R0, s_ex, lam, gradtol, max_time,
-                             escape_dir, verbose, precision, inner_f32,
-                             Q32=C32q if rows else stage_q32,
-                             checkpoint_path=mid_path, ckpt_meta=meta,
-                             stop_on_collapse=stage_q is not Cq, chunk=chunk_n)
-                if (stage_q is not Cq
-                        and res.done_reason != tr.DONE_LINESEARCH_FAIL):
-                    # the fast operator's absolute noise (~eta ||sR||^2) shows
-                    # against a near-zero primal (it can even read negative):
-                    # re-read the objective through the EXACT operator.  Only
-                    # the linesearch-fail sentinel keeps the stage's primal
-                    # (guarded by done_reason, not by sign)
-                    res = res._replace(primal=float(mf.objective(
-                        Cq.apply, res.R, res.s_ex, float(lam))))
-                primal_v, reason_v = res.primal, res.done_reason
-                outer_v, inner_v = res.outer_iters, res.total_inner
-            outer += int(outer_v)
-            inner += int(inner_v)
-            # the stage call's own certificate is reported under cert_s
-            t_stage = time.perf_counter() - t_stage0 - cert_s
-
-            if (float(primal_v) < 0
-                    and int(reason_v) == tr.DONE_LINESEARCH_FAIL):
-                status = STATUS_LINESEARCH_FAIL
-                stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
-                                   outer=int(outer_v), inner=int(inner_v),
-                                   reason=int(reason_v),
-                                   primal=float(primal_v), certified=False,
-                                   **log.counters()))
-                break
-
-            R_cur, s_cur, primal = res.R, res.s_ex, float(primal_v)
-            if int(reason_v) == tr.DONE_GRADTOL:
-                gradtol /= 10.0  # the reference's pass-by-reference tolerance
-
-            if rank3_only:
-                status = STATUS_MAX_RANK
-                stages.append(dict(rank=o, stage_s=t_stage, cert_s=0.0,
-                                   outer=int(outer_v), inner=int(inner_v),
-                                   reason=int(reason_v),
-                                   primal=float(primal_v), certified=False,
-                                   **log.counters()))
-                break
-
-            if cert_pre is not None:
-                cert = cert_pre   # the stage ran the certificate (fused=True)
-            else:
-                with log.cert():
-                    t_cert0 = time.perf_counter()
-                    cert = certify(Cq, _scaled_factor(R_cur, s_cur), lam,
-                                   res.primal, verbose=verbose,
-                                   v0=prev_escape_v, fast="auto", device=dev)
-                    cert_s = time.perf_counter() - t_cert0
-            gap, lam_min = float(cert.gap), float(cert.lam_min)
-            stages.append(dict(
-                rank=o, stage_s=t_stage, cert_s=cert_s,
-                fused=cert_pre is not None,
+            res, cert, cert_s = _rank(
+                Cq, stage_q, q32, R0, s_ex, lam, gradtol, cfg, mixed=mixed,
+                escape_dir=escape_dir, v0=prev_escape_v,
+                with_cert=not rank3_only, resume=mid_resume,
+                checkpoint_path=mid_path,
+                ckpt_meta=dict(rank=o, gradtol=gradtol, lam=float(lam)),
+                verbose=verbose, log=log)
+            mid_resume = None
+            outer += int(res.outer_iters)
+            inner += int(res.total_inner)
+            # the rank's certificate is reported under cert_s
+            stage = dict(rank=o, stage_s=time.perf_counter() - t_stage0
+                         - cert_s, cert_s=cert_s, outer=int(res.outer_iters),
+                         inner=int(res.total_inner),
+                         reason=int(res.done_reason),
+                         primal=float(res.primal), certified=False)
+            if cert is not None:
+                gap, lam_min = float(cert.gap), float(cert.lam_min)
                 # the deciding branch of the matvec flow; "dense" for the
                 # Cholesky probe on the whole matrix
-                cert_path=(cert.info or {}).get("path", "dense"),
-                outer=int(outer_v),
-                inner=int(inner_v), reason=int(reason_v),
-                primal=float(primal_v), certified=bool(cert.certified),
-                gap=gap, lam_min=lam_min, **log.counters()))
+                stage.update(cert_path=(cert.info or {}).get("path",
+                                                              "dense"),
+                             certified=bool(cert.certified), gap=gap,
+                             lam_min=lam_min)
+            stages.append(dict(stage, **log.counters()))
 
+        if res.done_reason == tr.DONE_LINESEARCH_FAIL:
+            status = STATUS_LINESEARCH_FAIL
+            break
+        R_cur, s_cur, primal = res.R, res.s_ex, float(res.primal)
+        if res.done_reason == tr.DONE_GRADTOL:
+            gradtol /= 10.0  # the reference's pass-by-reference tolerance
+        if rank3_only:
+            status = STATUS_MAX_RANK
+            break
         if cert.certified:
             status = STATUS_CERTIFIED
             certified = True

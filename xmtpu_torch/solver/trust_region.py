@@ -14,11 +14,19 @@ block-Jacobi preconditioner goes through the fused kernels
 and every CPU run — takes the generic loop, which is the reference's CPU
 branch.
 
-Outer-step routing (``_run_chunk``): where :func:`graph_route` holds (an f32
-carry on a whole ``DenseQ`` on one card, preconditioned), a chunk's outer
-steps replay CUDA graphs of :func:`_outer_step`'s own segments
-(``solver/graph_step.py``), with the same host reads, spans and bits;
-everywhere else they run :func:`_outer_step` itself.
+One trust region, one ladder (:func:`_ladder`): the escape linesearch,
+the mixed ladder's f32 phase and its handover to float64, then the stage;
+``trust_region_solve``, ``trust_region_solve_mixed`` and each rank of
+``solver/staircase.py`` run it.  It holds the one rule for the stage's
+first radius: ``delta_bar / 8``, or the f32 phase's own where the caller
+has a whole dense matrix and that phase ended within its first chunk.
+
+One outer step (:func:`_outer_step`): its host reads, checks, spans and
+decisions, around device segments from one of two providers.
+:class:`EagerSegments` makes plain calls on the state's tensors; where
+:func:`graph_route` holds (an f32 carry on a whole ``DenseQ`` on one card,
+preconditioned), ``graph_step.PhaseGraphs`` replays CUDA graphs of the
+same segments on static buffers, with the same bits.
 
 Non-finite readings (:func:`_nonfinite`): an outer step in float32 whose
 gradient norm, model decrease, trial loss or trust radius reads non-finite
@@ -34,6 +42,7 @@ step.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -349,17 +358,55 @@ def _nonfinite(st: TRState, *readings) -> "TRState | None":
     return st._replace(done=True, done_reason=DONE_NONFINITE)
 
 
-def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
-                Cdiag=None, qmul_inner=None) -> TRState:
-    """One outer TR iteration.  ``lam``, ``gradtol`` and ``delta_bar`` are
-    host scalars of the working dtype."""
-    if qmul_inner is None:
-        qmul_inner = qmul
+class EagerSegments:
+    """The outer step's device segments as plain calls on the state's own
+    tensors, with no copies: the provider :func:`_outer_step` takes
+    everywhere but :func:`graph_route`'s route.  ``lam`` is the host scalar
+    of the working dtype; ``Cdiag`` the operator's diagonal blocks for the
+    block-Jacobi preconditioner (None: none); ``qmul_inner`` the tCG's
+    product (default ``qmul``)."""
+
+    def __init__(self, qmul, lam, cfg: TRConfig, Cdiag=None, qmul_inner=None):
+        self.qmul, self.lam, self.lam_f, self.cfg = qmul, lam, float(lam), cfg
+        self.Cdiag = Cdiag
+        self.qmul_inner = qmul if qmul_inner is None else qmul_inner
+
+    def state(self, st: TRState) -> TRState:
+        return st
+
+    def start(self, st: TRState):
+        return _step_start(self.qmul, st.R, st.s_ex, st.QsR, self.lam_f)
+
+    def tcg(self, st: TRState, grad, gradnorm):
+        minv = (None if self.Cdiag is None
+                else _build_minv(self.Cdiag, st.s_ex, self.lam))
+        return _inner_tcg(self.qmul_inner, st.R, st.s_ex, *grad[:5], gradnorm,
+                          st.delta, self.lam, self.cfg, minv=minv)
+
+    def end(self, st: TRState, grad, v):
+        return _step_end(self.qmul, st.R, st.s_ex, *v, *grad[3:5], self.lam_f)
+
+    def accept(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _outer_step(seg, st: TRState, gradtol, delta_bar) -> TRState:
+    """One outer TR iteration: its host reads, checks, spans and decisions
+    around the device segments of ``seg`` (:class:`EagerSegments`, or
+    ``graph_step.PhaseGraphs`` on :func:`graph_route`'s route).  The
+    segments: ``state`` (the state on the provider's tensors), ``start``
+    (the gradient, its projection and norm: :func:`_step_start`'s six
+    outputs), ``tcg`` (the tCG solve: ``(vR, vs, hvR, hvs, endreason,
+    iters)``), ``end`` (:func:`_step_end`'s outputs, the kept tensors last)
+    and ``accept`` (a kept step into the provider's tensors).  ``gradtol``
+    and ``delta_bar`` are host scalars of the working dtype."""
     dt = np_dtype(st.R.dtype)
-    lam_f = float(lam)
-    CsR, egR, egs, pgR, pgs, gn = _step_start(qmul, st.R, st.s_ex, st.QsR,
-                                              lam_f)
-    (gradnorm,) = _fetch(gn, dt=dt)
+    st = seg.state(st)
+    grad = seg.start(st)
+    (gradnorm,) = _fetch(grad[5], dt=dt)
     end = _nonfinite(st, gradnorm)
     if end is not None:
         return end
@@ -367,20 +414,18 @@ def _outer_step(qmul, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
         return st._replace(gradnorm=gradnorm, done=True,
                            done_reason=DONE_GRADTOL)
 
-    minv = None if Cdiag is None else _build_minv(Cdiag, st.s_ex, lam)
     with span("xm.tr.tcg"):
-        vR, vs, hvR, hvs, endreason, iters = _inner_tcg(
-            qmul_inner, st.R, st.s_ex, CsR, egR, egs, pgR, pgs, gradnorm,
-            st.delta, lam, cfg, minv=minv)
-
-    loss_qu, loss_new, R_new, s_ex_new, dfdsR_new = _step_end(
-        qmul, st.R, st.s_ex, vR, vs, hvR, hvs, pgR, pgs, lam_f)
+        *v, endreason, iters = seg.tcg(st, grad, gradnorm)
+    loss_qu, loss_new, *kept = seg.end(st, grad, v)
     loss_qu, loss_new = _fetch(loss_qu, loss_new, dt=dt)
     end = _nonfinite(st, loss_qu, loss_new)
     if end is not None:
         return end
-    return _step_decide(st, cfg, delta_bar, gradnorm, endreason, iters,
-                        loss_qu, loss_new, R_new, s_ex_new, dfdsR_new)[1]
+    keep_new, st = _step_decide(st, seg.cfg, delta_bar, gradnorm, endreason,
+                                iters, loss_qu, loss_new, *kept)
+    if keep_new:
+        seg.accept()
+    return st
 
 
 def _step_decide(st: TRState, cfg: TRConfig, delta_bar, gradnorm, endreason,
@@ -462,31 +507,31 @@ _CHUNK_SPAN = {torch.float32: "xm.tr.chunk.f32",
 def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
                kmax: int, Q32=None) -> TRState:
     """Outer iterations until done or ``st.k >= kmax``, in the span
-    ``xm.tr.chunk.f32`` or ``xm.tr.chunk.f64`` of the working dtype."""
+    ``xm.tr.chunk.f32`` or ``xm.tr.chunk.f64`` of the working dtype; their
+    tCG products on ``Q32`` where it is given."""
     with span(_CHUNK_SPAN[st.R.dtype]):
         qop = as_qop(Q)
-        qmul = qop.apply
-        Cdiag = qop.diag_blocks() if cfg.precondition else None
-        qmul_inner = None
-        if Q32 is not None:
-            work_dtype = st.R.dtype
-            q32 = as_qop(Q32)
-
-            def qmul_inner(Y):
-                return q32.apply(Y.to(torch.float32)).to(work_dtype)
-
         dt = np_dtype(st.R.dtype)
         lam, gradtol, delta_bar = dt(lam), dt(gradtol), dt(delta_bar)
-        if qmul_inner is None and graph_route(qop, st, cfg):
+        if Q32 is None and graph_route(qop, st, cfg):
             from xmtpu_torch.solver.graph_step import PhaseGraphs
 
-            with PhaseGraphs(qop, st, lam, cfg) as phase:
-                while not st.done and st.k < kmax:
-                    st = phase.step(st, gradtol, delta_bar)
-            return st
-        while not st.done and st.k < kmax:
-            st = _outer_step(qmul, st, lam, gradtol, delta_bar, cfg, Cdiag,
-                             qmul_inner)
+            seg = PhaseGraphs(qop, st, lam, cfg)
+        else:
+            qmul_inner = None
+            if Q32 is not None:
+                work_dtype = st.R.dtype
+                q32 = as_qop(Q32)
+
+                def qmul_inner(Y):
+                    return q32.apply(Y.to(torch.float32)).to(work_dtype)
+
+            seg = EagerSegments(qop.apply, lam, cfg,
+                                qop.diag_blocks() if cfg.precondition
+                                else None, qmul_inner)
+        with contextlib.closing(seg):
+            while not st.done and st.k < kmax:
+                st = _outer_step(seg, st, gradtol, delta_bar)
     return st
 
 
@@ -561,7 +606,8 @@ def trust_region_solve(Q, R0, s_ex0, lam=0.0, gradtol=1e-6,
                        verbose: int = 0, delta0=None,
                        device=None) -> TRResult:
     """Solve ``min <sR, Q sR> + lam sum((s^2-1)^2)`` over the product
-    manifold (``xmtpu.solver.trust_region.trust_region_solve``).
+    manifold (``xmtpu.solver.trust_region.trust_region_solve``) through
+    :func:`_ladder`'s single stage.
 
     ``device``: None = the CUDA card (raises without one); pass ``"cpu"``
     to run on the host.  ``dtype``: working precision (default: R0's float
@@ -577,36 +623,16 @@ def trust_region_solve(Q, R0, s_ex0, lam=0.0, gradtol=1e-6,
     Q = as_qop(Q, device=dev)
     R0 = torch.as_tensor(R0, dtype=dtype, device=dev)
     s_ex0 = torch.as_tensor(s_ex0, dtype=dtype, device=dev)
-    dt = np_dtype(dtype)
-    n, _, o = R0.shape
-    dim = n * (3 * o - 6) + n - 1
-    delta_bar = dt(np.sqrt(float(dim)))
+    if dtype != torch.float64:
+        Q32 = None      # the f32 tCG products are for float64 carries
+    elif cfg.inner_f32 and Q32 is None:
+        from xmtpu_torch.ops.qop import cast_qop
 
-    R_cur, s_cur = R0, s_ex0
-    if linesearch_step != 0.0 and escape_dir is not None:
-        R_cur, _f, ok = _escape_linesearch(
-            Q, R0, s_ex0, torch.as_tensor(escape_dir, dtype=dtype, device=dev),
-            float(linesearch_step), lam, cfg)
-        if not ok:
-            return TRResult(R0, s_ex0, -1.0, float("inf"), 0, 0,
-                            DONE_LINESEARCH_FAIL)
-
-    st = _init_state(Q, R_cur, s_cur, dt(lam), delta_bar, cfg, delta0)
-
-    Q32_inner = None
-    if cfg.inner_f32 and dtype == torch.float64:
-        if Q32 is not None:
-            Q32_inner = Q32
-        else:
-            from xmtpu_torch.ops.qop import cast_qop
-
-            Q32_inner = cast_qop(Q, torch.float32)
-
-    deadline = time.monotonic() + cfg.max_time
-    return continue_chunks(Q, st, lam, gradtol, delta_bar, cfg,
-                           Q32=Q32_inner, k_done=0, deadline=deadline,
-                           checkpoint_path=checkpoint_path,
-                           ckpt_meta=ckpt_meta, verbose=verbose)
+        Q32 = cast_qop(Q, torch.float32)
+    return _ladder(Q, R0, s_ex0, lam, gradtol, cfg, Q32,
+                   escape_dir=escape_dir, step0=float(linesearch_step),
+                   delta0=delta0, checkpoint_path=checkpoint_path,
+                   ckpt_meta=ckpt_meta, verbose=verbose)
 
 
 def continue_chunks(Q, st: TRState, lam, gradtol, delta_bar,
@@ -617,9 +643,10 @@ def continue_chunks(Q, st: TRState, lam, gradtol, delta_bar,
                     verbose: int = 0) -> TRResult:
     """Drive the chunked outer loop from an existing ``TRState`` until done,
     ``max_outer``, or the wall-clock deadline (checked between chunks);
-    ``checkpoint_path`` saves the state after every unfinished chunk."""
+    ``checkpoint_path`` saves the state after every unfinished chunk.  A
+    state that is done already is its own result."""
     timed_out = False
-    done = False
+    done = st.done
     while (not done) and k_done < cfg.max_outer:
         kmax = min(k_done + cfg.chunk, cfg.max_outer)
         k_prev = k_done
@@ -651,39 +678,79 @@ def trust_region_solve_mixed(Q, R0, s_ex0, lam=0.0, gradtol=1e-6,
                              escape_dir=None, linesearch_step=0.0,
                              cfg: TRConfig = TRConfig(), Q32=None,
                              verbose: int = 0, device=None) -> TRResult:
-    """Two-phase precision ladder: f32 bulk, f64 polish (see the reference).
+    """Two-phase precision ladder: f32 bulk, f64 polish (see the reference),
+    through :func:`_ladder`; the polish starts at ``delta_bar / 8``, as the
+    reference's does.  ``Q32``: the f32 operator (default: ``Q``'s cast).
     The f32 phase's tCG iterations run through the fused kernels on CUDA."""
     from xmtpu_torch.ops.qop import cast_qop
 
     dev = resolve_device(device)
+    f64 = torch.float64
     Q = as_qop(Q, device=dev)
-    R0 = torch.as_tensor(R0, dtype=torch.float64, device=dev)
-    s_ex0 = torch.as_tensor(s_ex0, dtype=torch.float64, device=dev)
-    if linesearch_step != 0.0 and escape_dir is not None:
-        res_ls = trust_region_solve(Q, R0, s_ex0, lam, gradtol,
-                                    escape_dir=escape_dir,
-                                    linesearch_step=linesearch_step,
-                                    cfg=TRConfig(max_outer=0, chunk=1),
-                                    device=dev)
-        if res_ls.done_reason == DONE_LINESEARCH_FAIL:
-            return res_ls
-        R0, s_ex0 = res_ls.R, res_ls.s_ex
-
-    cfg32, gradtol32 = cfg.f32_ladder(gradtol)
+    R0 = torch.as_tensor(R0, dtype=f64, device=dev)
+    s_ex0 = torch.as_tensor(s_ex0, dtype=f64, device=dev)
     if Q32 is None:
         Q32 = cast_qop(Q, torch.float32)
-    res32 = trust_region_solve(Q32, R0.to(torch.float32),
-                               s_ex0.to(torch.float32), lam, gradtol32,
-                               cfg=cfg32, dtype=torch.float32,
-                               verbose=verbose, device=dev)
+    return _ladder(Q, R0, s_ex0, lam, gradtol, cfg, Q32, mixed=True,
+                   escape_dir=escape_dir, step0=float(linesearch_step),
+                   verbose=verbose)
 
-    # f64 polish from the f32 iterate (re-orthonormalize in f64 first)
-    R1 = mf.mgs_rows(res32.R.to(torch.float64))
-    s1 = res32.s_ex.to(torch.float64).clone()
-    s1[0] = 1.0
-    res64 = trust_region_solve(Q, R1, s1, lam, gradtol, cfg=cfg, Q32=Q32,
-                               verbose=verbose, device=dev)
-    return TRResult(res64.R, res64.s_ex, res64.primal, res64.gradnorm,
-                    res32.outer_iters + res64.outer_iters,
-                    res32.total_inner + res64.total_inner,
-                    res64.done_reason, res64.hist)
+
+def _ladder(Q, R0, s_ex0, lam, gradtol, cfg: TRConfig, Q32=None, *,
+            mixed: bool = False, warm: bool = False, escape_dir=None,
+            step0: float = 1.0, delta0=None,
+            checkpoint_path: "str | None" = None,
+            ckpt_meta: "dict | None" = None, verbose: int = 0) -> TRResult:
+    """The trust region from ``(R0, s_ex0)``, in order: the escape
+    linesearch along ``escape_dir`` from the step ``step0`` on ``Q`` (none
+    where either is None or zero);
+    with ``mixed``, the f32 phase on ``Q32`` (:meth:`TRConfig.f32_ladder`)
+    and its handover to float64; the stage on ``Q`` from the radius
+    ``delta0`` (None: ``delta_bar / 8``), its tCG products on ``Q32`` where
+    ``cfg.inner_f32``.  ``warm``: the operator is a whole dense matrix, and
+    the stage may start from the f32 phase's radius (below).  One deadline,
+    ``cfg.max_time`` from the start, checked between chunks;
+    ``checkpoint_path`` saves the stage after every unfinished chunk.  The
+    counts are both phases'; a failed linesearch returns ``R0`` with primal
+    -1 (``DONE_LINESEARCH_FAIL``)."""
+    deadline = time.monotonic() + cfg.max_time
+    n, _, o = R0.shape
+    delta_bar = np.sqrt(float(n * (3 * o - 6) + n - 1))
+    if escape_dir is not None and step0:
+        v = torch.as_tensor(escape_dir, dtype=R0.dtype, device=R0.device)
+        R_ls, _f, ok = _escape_linesearch(Q, R0, s_ex0, v, step0, lam, cfg)
+        if not ok:
+            return TRResult(R0, s_ex0, -1.0, float("inf"), 0, 0,
+                            DONE_LINESEARCH_FAIL)
+        R0 = R_ls
+    k32 = i32 = 0
+    if mixed:
+        f32, f64 = torch.float32, torch.float64
+        cfg32, gradtol32 = cfg.f32_ladder(gradtol)
+        st = _init_state(Q32, R0.to(f32), s_ex0.to(f32), np.float32(lam),
+                         np.float32(delta_bar), cfg32)
+        st = _run_chunk(Q32, st, lam, gradtol32, delta_bar, cfg32,
+                        min(cfg32.chunk, cfg32.max_outer))
+        if warm and st.done and np.isfinite(st.delta):
+            # the stage's warm radius (xmtpu/solver/staircase.py:138-146):
+            # the f32 phase's final radius, floored so that a hard f32
+            # collapse cannot stall the f64 start.  The reference takes it
+            # in its fused program alone: a dense operator, the f32 phase
+            # ended within its first chunk.  Elsewhere delta_bar / 8
+            delta0 = max(np.float64(st.delta), delta_bar * 1e-3)
+        res32 = continue_chunks(Q32, st, lam, gradtol32, delta_bar, cfg32,
+                                k_done=st.k, deadline=deadline,
+                                verbose=verbose)
+        # the handover: the f32 iterate re-orthonormalized in f64
+        R0 = mf.mgs_rows(res32.R.to(f64))
+        s_ex0 = res32.s_ex.to(f64).clone()
+        s_ex0[0] = 1.0
+        k32, i32 = res32.outer_iters, res32.total_inner
+    st = _init_state(Q, R0, s_ex0, np_dtype(R0.dtype)(lam), delta_bar, cfg,
+                     delta0)
+    res = continue_chunks(Q, st, lam, gradtol, delta_bar, cfg,
+                          Q32=Q32 if cfg.inner_f32 else None,
+                          deadline=deadline, checkpoint_path=checkpoint_path,
+                          ckpt_meta=ckpt_meta, verbose=verbose)
+    return res._replace(outer_iters=res.outer_iters + k32,
+                        total_inner=res.total_inner + i32)
