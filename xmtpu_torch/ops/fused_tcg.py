@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.ops import manifold as mf
-from xmtpu_torch.utils.timer import host_reads
+from xmtpu_torch.utils.timer import host_reads, launcher
 
 # scalar-carry slots (sc, shape (NS,)) and config slots (cfg, shape (NC,))
 S_RDOTR, S_RDOTZ, S_VDOTV, S_VDOTP, S_PDOTP, S_ER, S_DONE, S_I = range(8)
@@ -394,6 +394,7 @@ def _checked(what: str, args, C, work, checked) -> Checked:
     return checked
 
 
+@launcher
 def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
              CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg, max_inner: int,
              work=None, checked: "Checked | None" = None):
@@ -417,9 +418,7 @@ def tcg_step(Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt, inv_ms,
     tcg_step.launches += 1
 
 
-tcg_step.launches = 0
-
-
+@launcher
 def tcg_step_dense(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
                    inv_ms, CWt, vR, vs, rR, rs, pR, ps, hvR, hvs, sc, cfg,
                    max_inner: int, work=None,
@@ -442,9 +441,6 @@ def tcg_step_dense(C, Rt, s_ex_t, sfree, inv_s2, egs_t, Segrt, CsRt, minvRt,
                                       blocks, threads, stream)
     _raise_on(rc, "tcg_step_dense")
     tcg_step_dense.launches += 1
-
-
-tcg_step_dense.launches = 0
 
 
 # ----------------------------------------------------------- the loop --

@@ -39,6 +39,16 @@ class QOperator:
     #: takes its f32 stages on the operator's own f32 cast
     dense_rows = False
 
+    #: the span (``utils.timer.span``) that each product opens, or None
+    apply_span = None
+
+    def capturable(self, device) -> bool:
+        """Whether a product may be captured into a CUDA graph of the f32
+        outer step on the card ``device`` (``solver/graph_step.py``): the
+        operator is whole and in float32 on that card, and its product
+        reads nothing back to the host.  False unless a class says so."""
+        return False
+
     @property
     def psd_by_construction(self) -> bool:
         """True when the operator is structurally PSD (a Schur complement of
@@ -102,6 +112,9 @@ class DenseQ(QOperator):
 
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         return self.C @ Y
+
+    def capturable(self, device) -> bool:
+        return self.C.dtype == torch.float32 and self.C.device == device
 
     def diag_blocks(self):
         n = self.dim // 3

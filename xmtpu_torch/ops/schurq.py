@@ -48,11 +48,14 @@ Every other product (the exact f64 ``SchurQ``, ``SchurQEdgeF32``,
 arithmetic written in the kernels' five stages.
 
 Every product of an operator of this module (``apply``) runs in the span
-``xm.schurq.apply`` and is counted by its arithmetic in
-``utils.timer.applies_f64`` (the exact ``SchurQ``), ``applies_tf``
-(``SchurQTF``) or ``applies_f32`` (``SchurQEdgeF32``, and ``SchurQ`` cast
-to float32); a sharded operator counts as the class it shards.  A fused
-product is counted in ``applies_fused`` too.
+``xm.schurq.apply`` (the operators' ``apply_span``) and is counted by its
+arithmetic in ``utils.timer.applies_f64`` (the exact ``SchurQ``),
+``applies_tf`` (``SchurQTF``) or ``applies_f32`` (``SchurQEdgeF32``, and
+``SchurQ`` cast to float32); a sharded operator counts as the class it
+shards.  A fused product is counted in ``applies_fused`` too, and in
+``schurq_product.launches``.  A whole ``SchurQ`` on the fused route is
+``capturable``: ``solver/graph_step.py`` replays its products inside CUDA
+graphs and counts them as its captures recorded them.
 
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
@@ -76,7 +79,7 @@ from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
 from xmtpu_torch.ops.segsum import (max_band, planned_offsets,
                                     sorted_segment_sum)
 from xmtpu_torch.utils.timer import (applies_f32, applies_f64, applies_fused,
-                                     applies_tf, span)
+                                     applies_tf, launcher, span)
 
 APPLY_SPAN = "xm.schurq.apply"
 
@@ -167,11 +170,12 @@ def _applies(q):
 
 
 def _traced(apply):
-    """``apply`` in the span ``xm.schurq.apply``, counted (module doc)."""
+    """``apply`` in its operator's span ``apply_span`` (``xm.schurq.apply``),
+    counted (module doc)."""
     @functools.wraps(apply)
     def traced(self, Y):
         _applies(self).n += 1
-        with span(APPLY_SPAN):
+        with span(self.apply_span):
             return apply(self, Y)
     return traced
 
@@ -213,6 +217,8 @@ class SchurQ(QOperator):
     psd_ok: bool = True
     band_l: int = 0
     band_f: int = 0
+
+    apply_span = APPLY_SPAN
 
     def with_pallas(self, interpret: "bool | None" = None) -> "SchurQ":
         """The operator with the reference kernel's segment-sum bands
@@ -350,6 +356,12 @@ class SchurQ(QOperator):
         return x_A, x_B
 
     # ---- operator interface ----
+
+    def capturable(self, device) -> bool:
+        """Where its products take :func:`schurq_product` on ``device``."""
+        q3 = self.inv_q3
+        return (fused_route(type(self), q3.dtype, q3.device)
+                and q3.device == device)
 
     @_traced
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
@@ -519,6 +531,7 @@ def _fused_args(q: SchurQ) -> _Fused:
     return got
 
 
+@launcher
 def schurq_product(q: SchurQ, Y: torch.Tensor) -> torch.Tensor:
     """``q.apply(Y)`` of a whole float32 ``SchurQ`` (module doc), with the
     seams' bits: on the card the seams' two per-camera einsums, the four
@@ -565,9 +578,6 @@ def schurq_product(q: SchurQ, Y: torch.Tensor) -> torch.Tensor:
     schurq_product.launches += 1
     applies_fused.n += 1
     return out
-
-
-schurq_product.launches = 0
 
 
 def pad_cameras(Q, n_pad: int):
@@ -734,6 +744,7 @@ class SchurQEdgeF32(QOperator):
 
     solve_M = SchurQ.solve_M
     apply = SchurQ.apply
+    apply_span = SchurQ.apply_span
     recover_y = SchurQ.recover_y
 
 
@@ -793,6 +804,8 @@ class SchurQTF(QOperator):
     v1l: torch.Tensor
     band_l: int = 0
     band_f: int = 0
+
+    apply_span = APPLY_SPAN
 
     n_cameras = SchurQEdgeF32.n_cameras
     n_landmarks = SchurQEdgeF32.n_landmarks

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.ops.fused_tcg import _check, _on_cpu, _raise_on
+from xmtpu_torch.utils.timer import launcher
 
 CHUNK = 512
 SEG_BLOCK = 2048
@@ -295,6 +296,7 @@ def _suffix(vals: torch.Tensor, what: str) -> str:
     raise TypeError(f"{what}: dtype {vals.dtype}, expected float32/float64")
 
 
+@launcher
 def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int, band: int = 0,
                        offsets: "torch.Tensor | None" = None) -> torch.Tensor:
@@ -356,11 +358,11 @@ def sorted_segment_sum(vals: torch.Tensor, seg_ids: torch.Tensor,
     return out
 
 
-sorted_segment_sum.launches = 0
 sorted_segment_sum.shapes = {}
 sorted_segment_sum.layouts = {}
 
 
+@launcher
 def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
                                num_segments: int, blk, first, band: int,
                                seg_block: int = SEG_BLOCK,
@@ -400,9 +402,6 @@ def sorted_segment_sum_blocked(vals: torch.Tensor, seg_ids: torch.Tensor,
     _raise_on(rc, "sorted_segment_sum_blocked")
     sorted_segment_sum_blocked.launches += 1
     return out
-
-
-sorted_segment_sum_blocked.launches = 0
 
 
 class Segments:

@@ -292,6 +292,10 @@ class ShardedSchurQ(QOperator):
     def solve_M(self, b_A, b_B):
         return self.kind.solve_M(self, b_A, b_B)
 
+    @property
+    def apply_span(self):
+        return self.kind.apply_span
+
     def apply(self, Y: torch.Tensor) -> torch.Tensor:
         return self.kind.apply(self, Y)
 

@@ -1,11 +1,12 @@
 """The f32 outer step's segments as CUDA graphs, with ``tcg_step`` launched
 between replays.
 
-Within one chunk of the f32 phase on a whole ``DenseQ`` (the route that
-``trust_region.graph_route`` picks) the shapes are fixed, and the step works
-on static buffers: the frames, the scales, the carried ``2 Q sR``, the fused
-loop's arrays and its scalar carry.  Each stretch of device work between two
-host reads is captured once and replayed at every outer step:
+Within one chunk of the f32 phase on a whole ``DenseQ``, or on a whole
+``SchurQ`` whose products take the fused kernels (the route that
+``trust_region.graph_route`` picks), the shapes are fixed, and the step
+works on static buffers: the frames, the scales, the carried ``2 Q sR``, the
+fused loop's arrays and its scalar carry.  Each stretch of device work
+between two host reads is captured once and replayed at every outer step:
 
 * ``start``: ``trust_region._step_start`` (gradient, projection, norm),
   ``trust_region._build_minv`` and ``fused_tcg.prepare_arrays``, the norm
@@ -37,21 +38,36 @@ graphs freed instead of new ones from cudaMalloc, and the stream's cuBLAS
 workspace is made once.  The segments share the pool safely because they
 replay in the order they were captured, and what a segment keeps (its
 outputs) is read before the segments captured before it replay again.  A
-segment's first capture on a card follows one eager run of it on that
-stream, which makes the libraries' handles and workspaces outside the
-capture.  :data:`utils.timer.graph_replays` counts the replays.
+segment's first capture on a card for an operator class follows one eager
+run of it on that stream, which makes the libraries' handles and
+workspaces outside the capture.  :data:`utils.timer.graph_replays` counts
+the replays.
+
+The solve's counts live in Python (``utils.timer.counts``: its counters,
+such as the implicit operator's ``applies_*``, and the kernel launchers'
+``launches``), where a replay does not go.  So a capture records what its
+capture run added to each count, and leaves every count as the warm-up and
+the capture found them: the capture runs nothing on the card, and the
+warm-up is the graph's, not the solve's.  Each replay adds what its capture
+recorded, and the products among them (``utils.timer.PRODUCTS``) to
+``utils.timer.applies_replayed``.  The ``product`` segment's replay runs in
+the operator's ``apply_span``, where it has one (``SchurQ``'s
+``xm.schurq.apply``), as an eager product does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
+from typing import NamedTuple
 
 import torch
 
 from xmtpu_torch.ops import fused_tcg
 from xmtpu_torch.solver import trust_region as tr
-from xmtpu_torch.utils.timer import graph_replays, span
+from xmtpu_torch.utils.timer import (PRODUCTS, applies_replayed, counts,
+                                     graph_replays, set_counts, span)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,8 +93,23 @@ def _pool(device: torch.device) -> tuple:
     return keeper, pool
 
 
-# (device, segment) pairs captured once already in this process
+# (device, operator class, segment) captured once already in this process
 _warm = set()
+
+
+def _moved(before: dict, after: dict) -> dict:
+    """The counts that moved from ``before`` to ``after``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+class _Segment(NamedTuple):
+    """A captured segment: its graph, what its capture run added to each
+    count (keyed as ``utils.timer.counts``: what each replay adds), and the
+    products among them."""
+    graph: "torch.cuda.CUDAGraph"
+    counts: dict
+    products: int
 
 
 class PhaseGraphs:
@@ -89,7 +120,9 @@ class PhaseGraphs:
 
     def __init__(self, qop, st: tr.TRState, lam, cfg: tr.TRConfig):
         dev = st.R.device
+        self.kind = type(qop)
         self.qmul = qop.apply
+        self.apply_span = qop.apply_span
         self.Cdiag = qop.diag_blocks()
         self.lam, self.lam_f, self.cfg = lam, float(lam), cfg
         self.capture = dev.type == "cuda"
@@ -130,39 +163,55 @@ class PhaseGraphs:
         self.QsR.copy_(dfdsR_new)
 
     # ---- capture and replay
-    def _run(self, name: str) -> None:
+    def _run(self, name: str, opens: "str | None" = None) -> None:
+        """The segment ``name``, replayed in the span ``opens`` if given."""
         fn = getattr(self, "_" + name)
         if not self.capture:
             fn()
             return
-        g = self.graphs.get(name)
-        if g is None:
-            g = self.graphs[name] = self._capture(name, fn)
-        g.replay()
+        seg = self.graphs.get(name)
+        if seg is None:
+            seg = self.graphs[name] = self._capture(name, fn)
+        with span(opens) if opens else contextlib.nullcontext():
+            seg.graph.replay()
+        set_counts(seg.counts, add=True)
+        applies_replayed.n += seg.products
         graph_replays.n += 1
 
-    def _capture(self, name: str, fn) -> "torch.cuda.CUDAGraph":
-        """``fn`` captured on the card's capture stream into the segment's
-        pool, after an eager run there the first time in the process (the
-        graph then holds the buffers that capture allocated: ``fn`` keeps
-        them as attributes)."""
+    def _capture(self, name: str, fn) -> _Segment:
+        """The segment ``fn`` captured (:meth:`_graph`) with what its
+        capture run added to each count; every count ends as it was."""
         t0 = time.perf_counter()
+        before = counts()
+        try:
+            graph, made = self._graph(name, fn)
+        finally:
+            set_counts(before)
+        self.capture_s += time.perf_counter() - t0
+        return _Segment(graph, made, sum(made.get(c, 0) for c in PRODUCTS))
+
+    def _graph(self, name: str, fn) -> tuple:
+        """``fn`` captured on the card's capture stream into the segment's
+        pool, after an eager run there the first time in the process for
+        the operator's class (the graph then holds the buffers that capture
+        allocated: ``fn`` keeps them as attributes).  Returns the graph and
+        the counts that the capture run moved, by how much."""
         dev = self.R.device
         cur, stream = torch.cuda.current_stream(dev), _capture_stream(dev)
         stream.wait_stream(cur)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
-            if (dev, name) not in _warm:
+            if (dev, self.kind, name) not in _warm:
                 fn()
-                _warm.add((dev, name))
+                _warm.add((dev, self.kind, name))
+            warm = counts()
             g.capture_begin(pool=_pool(dev)[1])
             try:
                 fn()
             finally:
                 g.capture_end()
         cur.wait_stream(stream)
-        self.capture_s += time.perf_counter() - t0
-        return g
+        return g, _moved(warm, counts())
 
     # ---- the provider's segments, as trust_region._outer_step calls them
     def state(self, st: tr.TRState) -> tr.TRState:
@@ -177,7 +226,8 @@ class PhaseGraphs:
         if self.loop is None or not self.capture:
             self.loop = fused_tcg.bind_loop(
                 self.qmul, self.args,
-                product=functools.partial(self._run, "product"))
+                product=functools.partial(self._run, "product",
+                                          self.apply_span))
         return fused_tcg.inner_tcg_fused(
             self.qmul, self.R, self.s_ex, *grad[:5], gradnorm, st.delta,
             self.lam, self.cfg, None, self.loop)

@@ -46,7 +46,8 @@ from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.solver import trust_region as tr
 from xmtpu_torch.solver.certificate import CertificateResult, certify
 from xmtpu_torch.utils.timer import (applies_f32, applies_f64,
-                                     applies_fused, applies_tf,
+                                     applies_fused, applies_replayed,
+                                     applies_tf,
                                      f32_nonfinite, graph_replays,
                                      host_reads, max_memory_allocated,
                                      memory_allocated, span, spanned)
@@ -81,7 +82,8 @@ class SolveResult(NamedTuple):
     # applies_tf and applies_f32 (the implicit operator's products in the
     # rank, its certificate included: utils.timer's counters of those names),
     # applies_fused (those of the f32 products that ran as the fused
-    # kernels, utils.timer.applies_fused) and, read only
+    # kernels, utils.timer.applies_fused), applies_replayed (the products
+    # that ran by graph replay, utils.timer.applies_replayed) and, read only
     # while spans are on and on a card, mem_base_bytes (allocated at the
     # solve's start), peak_bytes and cert_peak_bytes (the card's peak
     # allocation at the end of the rank's trust region and of its
@@ -93,7 +95,8 @@ class SolveResult(NamedTuple):
 _COUNTERS = {"host_reads": host_reads, "graph_replays": graph_replays,
              "f32_nonfinite": f32_nonfinite, "applies_f64": applies_f64,
              "applies_tf": applies_tf, "applies_f32": applies_f32,
-             "applies_fused": applies_fused}
+             "applies_fused": applies_fused,
+             "applies_replayed": applies_replayed}
 
 
 class _RankLog:

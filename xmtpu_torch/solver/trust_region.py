@@ -24,9 +24,10 @@ has a whole dense matrix and that phase ended within its first chunk.
 One outer step (:func:`_outer_step`): its host reads, checks, spans and
 decisions, around device segments from one of two providers.
 :class:`EagerSegments` makes plain calls on the state's tensors; where
-:func:`graph_route` holds (an f32 carry on a whole ``DenseQ`` on one card,
-preconditioned), ``graph_step.PhaseGraphs`` replays CUDA graphs of the
-same segments on static buffers, with the same bits.
+:func:`graph_route` holds (an f32 carry on a whole f32 ``DenseQ``, or a
+whole ``SchurQ`` on the fused product, on one card, preconditioned),
+``graph_step.PhaseGraphs`` replays CUDA graphs of the same segments on
+static buffers, with the same bits.
 
 Non-finite readings (:func:`_nonfinite`): an outer step in float32 whose
 gradient norm, model decrease, trial loss or trust radius reads non-finite
@@ -52,7 +53,7 @@ import torch
 
 from xmtpu_torch._device import resolve_device
 from xmtpu_torch.ops import manifold as mf
-from xmtpu_torch.ops.qop import DenseQ, as_qop
+from xmtpu_torch.ops.qop import as_qop
 from xmtpu_torch.utils.timer import f32_nonfinite, host_reads, span, spanned
 
 # done_reason codes
@@ -537,15 +538,17 @@ def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
 
 def graph_route(qop, st: TRState, cfg: TRConfig) -> bool:
     """Whether a chunk's outer steps run as CUDA graphs
-    (``solver/graph_step.py``): the operator is a whole ``DenseQ`` in f32 on
-    the carry's CUDA device, the carry is f32 with its ``2 Q sR``, and the
-    block-Jacobi preconditioner is on.  Every other case (``SchurQ`` and
-    its forms, the sharded operators of ``parallel/``, f64 carries, every
-    CPU run) steps through :func:`_outer_step`."""
+    (``solver/graph_step.py``): the carry is f32 with its ``2 Q sR`` on a
+    CUDA device, the block-Jacobi preconditioner is on, and the operator's
+    product is ``capturable`` there (a whole ``DenseQ`` in f32, or a whole
+    ``SchurQ`` whose products take the fused kernels).  Every other case
+    (``SchurQEdgeF32``, ``SchurQTF``, the sharded operators of
+    ``parallel/``, f64 carries, every CPU run) steps through
+    :class:`EagerSegments`."""
     R = st.R
-    return (type(qop) is DenseQ and cfg.precondition and st.QsR is not None
+    return (cfg.precondition and st.QsR is not None
             and R.dtype == torch.float32 and R.device.type == "cuda"
-            and qop.C.dtype == torch.float32 and qop.C.device == R.device)
+            and qop.capturable(R.device))
 
 
 def _init_state(Q, R0, s_ex0, lam, delta_bar, cfg: TRConfig,

@@ -35,10 +35,16 @@ mixed ladder's f32 phases ended at a non-finite reading
 :data:`applies_tf` and :data:`applies_f32` the implicit operator's
 products: the exact ``SchurQ`` in float64, the two-float ``SchurQTF``, and
 those in float32 arithmetic (``SchurQEdgeF32``'s edge sums, ``SchurQ``
-cast to float32), and :data:`applies_fused` those of the float32 ones that
-ran as the fused kernels (``ops/schurq.schurq_product`` on a card).  All
-only grow, and a reader takes the difference over
-the stretch it measures.  :func:`memory_allocated` and
+cast to float32), :data:`applies_fused` those of the float32 ones that
+ran as the fused kernels (``ops/schurq.schurq_product`` on a card), and
+:data:`applies_replayed` those of all three that ran inside a replayed
+CUDA graph (``solver/graph_step.py``).  All only grow, and a reader takes
+the difference over the stretch it measures.  :data:`COUNTERS` lists
+them, and :func:`launcher` enters the kernel launchers of ``ops/``, each of
+which counts its calls in its attribute ``launches``, in
+:data:`LAUNCHERS`: :func:`counts` reads all of these counts and
+:func:`set_counts` sets or adds to them, as ``solver/graph_step.py`` does
+around a graph's capture and at each replay.  :func:`memory_allocated` and
 :func:`max_memory_allocated` read the card's allocator while spans are on.
 ``solve_arrays`` puts the counts and readings, per rank, into
 ``SolveResult.stages``.
@@ -49,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import sys
 import time
 from collections import defaultdict
 
@@ -86,14 +93,21 @@ def spanned(name: str, leaf: bool = False):
     return wrap
 
 
+# every ReadCounter below, but the depth _leaves, in order of definition
+COUNTERS = []
+
+
 class ReadCounter:
     """A count: ``n``, the events counted so far (the counters below only
-    grow; ``_leaves`` is a depth)."""
+    grow; ``_leaves`` is a depth), entered in :data:`COUNTERS` if
+    ``listed``."""
 
     __slots__ = ("n",)
 
-    def __init__(self):
+    def __init__(self, listed: bool = True):
         self.n = 0
+        if listed:
+            COUNTERS.append(self)
 
 
 # the trust region's device-to-host reads (each one also a synchronise)
@@ -111,9 +125,51 @@ applies_f32 = ReadCounter()
 # the float32 products among them that ran as the fused kernels
 # (ops/schurq.py schurq_product)
 applies_fused = ReadCounter()
+# the products among them that ran by graph replay (solver/graph_step.py)
+applies_replayed = ReadCounter()
 # the depth of open leaf spans (spanned(..., leaf=True)): no span opens
 # inside one
-_leaves = ReadCounter()
+_leaves = ReadCounter(listed=False)
+# the three that partition the implicit operator's products
+PRODUCTS = (applies_f64, applies_tf, applies_f32)
+
+# the kernel launchers of ops/ (launcher), by module and name
+LAUNCHERS = []
+
+
+def launcher(fn):
+    """Decorator: ``fn`` launches a kernel and counts its calls on the card
+    in its attribute ``launches``, from 0; entered in :data:`LAUNCHERS`."""
+    fn.launches = 0
+    LAUNCHERS.append((fn.__module__, fn.__name__))
+    return fn
+
+
+def _launcher(key):
+    """A launcher as its callers find it: through its module, where a
+    caller may have put a wrapper that carries its count."""
+    module, name = key
+    return getattr(sys.modules[module], name)
+
+
+def counts() -> dict:
+    """Every count: each of :data:`COUNTERS` by itself, and each launcher's
+    ``launches`` by its key in :data:`LAUNCHERS`."""
+    out = {c: c.n for c in COUNTERS}
+    for key in LAUNCHERS:
+        out[key] = _launcher(key).launches
+    return out
+
+
+def set_counts(values: dict, add: bool = False) -> None:
+    """Each count that ``values`` (keyed as :func:`counts`) names set to
+    its value there, or, with ``add``, grown by it."""
+    for key, v in values.items():
+        if isinstance(key, ReadCounter):
+            key.n = key.n + v if add else v
+        else:
+            fn = _launcher(key)
+            fn.launches = fn.launches + v if add else v
 
 
 def _card(device) -> bool:
