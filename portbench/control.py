@@ -2,9 +2,9 @@
 
     python3 portbench/control.py --workload <cell> --seeds 1 2 3 ...
 
-For each seed this makes the cell's scenes, solves each once through the
-program (as a run's window does), and judges them by the run's own
-judgement (``run.judge``) against the float64 reference: the program's
+For each seed this makes the cell's scenes, serves each once through its
+route (as a run's window does), and judges them by the run's own
+judgement (the route's ``judge``) against the float64 reference: the program's
 outputs (the lower readings), and the control's, which is the reference
 computed in float32 put in the program's place at the program's factors
 (the upper readings).  One JSON line a seed.
@@ -32,23 +32,22 @@ def readings(cell: pb_spec.Cell, seed: int, device, control_dtype=None,
              log=print) -> dict:
     """``{"program": {...}, "control": {...}}``: the worst reading of each
     number over the scenes' solutions (the control's only with
-    ``control_dtype``), judged by the run's own :func:`run.judge`."""
-    import pb_program
-    import run
-
+    ``control_dtype``), judged by the run's own judgement, its route's
+    ``judge``."""
+    route = pb_spec.load_route(cell)
     config = cell.config
-    scenes = run.make_scenes(config)
-    ops = [pb_program.build_operator(sc, config, device) for sc in scenes]
-    sols = [pb_program.solve_one(k, op, config, device)
-            for k, op in enumerate(ops)]
+    scenes = route.scenes(config)
+    held = [route.setup(sc, config, device) for sc in scenes]
+    sols = [route.request(k, h, config, device)
+            for k, h in enumerate(held)]
     for s in sols:
         r = s.result
         if r is not None:
             log(f"[control] seed {seed} scene {s.scene}: rank {r.rank} "
                 f"outer {r.outer_iters} inner {r.total_inner} wall "
                 f"{s.wall_s:.3f} s")
-    prog, failed, ctrl = run.judge(scenes, ops, sols, config, seed, device,
-                                   control_dtype, log=log)
+    prog, failed, ctrl = route.judge(scenes, held, sols, config, seed,
+                                     device, control_dtype, log=log)
     out = {"seed": seed, "walls": [s.wall_s for s in sols],
            "program": dict(prog, failed=failed)}
     if control_dtype is not None:

@@ -6,11 +6,13 @@ block drawn from the seed, the reported primal at the returned factor, the
 dual certificate at that factor, the rounded rotations and scales, and the
 recovered translations and landmarks.  Every number is the worst over the
 run's solutions and is held to the configuration's limit; a solution that
-raised or did not certify counts in ``failed``, whose limit is 0.
+raised or did not certify counts in ``failed``, whose limit is 0.  A route
+(``routes/<name>.py``) may hold checks of its own beside :data:`CHECKS`.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +47,49 @@ class Output(NamedTuple):
              self.t_est))
 
 
+class Judged(NamedTuple):
+    """One output of a served request and what it is judged on: ``obs``,
+    the observation set it was solved on (None: the scene's own; else a set
+    the request derived, with the scene's ``edges``, ``weights``,
+    ``landmarks``, ``N`` and ``M`` fields), and ``lam``, the scale penalty it
+    was solved at."""
+
+    output: Output
+    obs: object
+    lam: float
+
+
+def gather(sols, log=print) -> "tuple[int, list]":
+    """``(failed, judged)``: the requests that raised, returned no output or
+    returned one that did not certify, and the :class:`Judged` outputs of
+    the others, in request order."""
+    failed, judged = 0, []
+    for s in sols:
+        if s.error:
+            log(f"[portbench] scene {s.scene} raised:\n{s.error}")
+        if (s.error or not s.outputs
+                or not all(j.output.certified for j in s.outputs)):
+            failed += 1
+            continue
+        judged.extend(s.outputs)
+    return failed, judged
+
+
+def release(held: list, device) -> None:
+    """Frees what set-up held (``held`` is emptied) before the reference
+    runs: the program's state is not the judge's."""
+    held.clear()
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def merge(into: dict, readings: dict) -> None:
+    """Keeps each number's worst reading in ``into``."""
+    for name, v in readings.items():
+        into[name] = max(into.get(name, 0.0), v)
+
+
 def seed_int(*parts) -> int:
     """A 63-bit integer drawn from the run's seed and ``parts``."""
     ss = np.random.SeedSequence([int(p) for p in parts])
@@ -77,6 +122,33 @@ def judge_scene(el: ref.Elimination, X: torch.Tensor, applied: np.ndarray,
     return worst
 
 
+def judge_set(obs, X: torch.Tensor, applied: np.ndarray, judged: list,
+              limits: dict, seed: int, k: int, device,
+              control_dtype=None) -> "tuple[dict, dict | None]":
+    """The worst readings of the :class:`Judged` outputs ``judged``, all
+    solved on the observation set ``obs``, against the float64 reference
+    eliminated once from it (``k`` draws the certificate's start vectors),
+    and with ``control_dtype`` the control's readings at the same factors.
+    The reference holds no scale penalty: an output solved at ``lam != 0``
+    needs a reference of its route's own."""
+    if any(j.lam != 0.0 for j in judged):
+        raise ValueError("the plain reference judges outputs solved at "
+                         "lam = 0 only")
+    outputs = [j.output for j in judged]
+    el = ref.eliminate(obs.edges, obs.weights, obs.landmarks, obs.N, obs.M,
+                       torch.float64, device)
+    ctrl = None
+    if control_dtype is not None:
+        ctrl = control_outputs(obs, outputs, X, control_dtype, device)
+    prog = judge_scene(el, X, applied, outputs, limits, seed, k, device)
+    if ctrl is not None:
+        ctrl = judge_scene(el, X, *ctrl, limits, seed, k, device)
+    del el
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return prog, ctrl
+
+
 def judge_output(el: ref.Elimination, out: Output, limits: dict, gen,
                  device) -> dict:
     f64 = torch.float64
@@ -103,12 +175,13 @@ def judge_output(el: ref.Elimination, out: Output, limits: dict, gen,
     }
 
 
-def verdict(worst: dict, failed: int, limits: dict) -> "tuple[bool, dict]":
+def verdict(worst: dict, failed: int, limits: dict,
+            extra: tuple = ()) -> "tuple[bool, dict]":
     """``(correct, checks)``: each number beside its limit, in
-    :data:`CHECKS` order."""
+    :data:`CHECKS` order, then a route's own checks ``extra``."""
     worst = dict(worst, failed=failed)
     checks, ok = {}, True
-    for name in CHECKS:
+    for name in CHECKS + tuple(extra):
         v, lim = worst.get(name), limits[name]
         if v is None:
             v = float("inf")      # a number that could not be read fails

@@ -5,7 +5,9 @@ built in set-up (the dense assembly ``create_matrix_arrays`` into a
 ``DenseQ``, or ``SchurQ.build``), one solution (``solve_arrays``, then
 ``recover_XM`` or ``recover_XM_implicit``), the kernels' build, and
 counting wrappers around the kernel launchers, put where their callers look
-them up, for the per-layer readers of a traced run.
+them up, for the per-layer readers of a traced run.  A route
+(``routes/<name>.py``) serves its requests from these pieces, and from the
+program's own entry points where it needs others.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 import xmtpu_torch  # noqa: F401  (switches TF32 off, as the program runs)
+from pb_judge import Judged, Output
 from xmtpu_torch import _build
 from xmtpu_torch.assembly.creatematrix import create_matrix_arrays
 from xmtpu_torch.ops import fused_tcg, schurq, segsum
@@ -60,18 +63,28 @@ def build_operator(scene, config: dict, device) -> Operator:
 
 
 class Solution(NamedTuple):
+    """One served request: its wall and recovery seconds (host clock),
+    every ``SolveResult`` it ran, in order, the outputs the judge reads
+    (``pb_judge.Judged``), and the traceback of a request that raised."""
+
     scene: int
     wall_s: float
     recover_s: float
-    result: object        # SolveResult, or None when it raised
-    recovered: tuple      # (R_real, s_real, p_est, t_est), or None
+    results: tuple
+    outputs: tuple
     error: str
+
+    @property
+    def result(self):
+        """The request's last ``SolveResult``, or None when it ran none."""
+        return self.results[-1] if self.results else None
 
 
 def solve_one(k: int, operator: Operator, config: dict,
               device) -> Solution:
     """One certified solution of scene ``k``: the staircase, then recovery,
-    timed on the host's clock; both end with their outputs on the host."""
+    timed on the host's clock; both end with their outputs on the host.
+    Its one output is judged on the scene's own observations."""
     t0 = time.perf_counter()
     try:
         res = solve_arrays(operator.op, verbose=False, device=device,
@@ -87,9 +100,12 @@ def solve_one(k: int, operator: Operator, config: dict,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t2 = time.perf_counter()
-        return Solution(k, t2 - t0, t2 - t1, res, rec, "")
+        out = Output(k, res.R, res.s_ex, float(res.primal),
+                     bool(res.certified), *rec)
+        return Solution(k, t2 - t0, t2 - t1, (res,),
+                        (Judged(out, None, float(lam)),), "")
     except Exception:  # a solution that raises is counted as failed
-        return Solution(k, time.perf_counter() - t0, 0.0, None, None,
+        return Solution(k, time.perf_counter() - t0, 0.0, (), (),
                         traceback.format_exc())
 
 

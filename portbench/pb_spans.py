@@ -137,8 +137,18 @@ def idle_pct(run, layer: str) -> "float | None":
     return 100.0 * sp["idle"].get(layer, 0) / sp["window_ns"]
 
 
+def results(sol) -> tuple:
+    """Every ``SolveResult`` a served request ran, in order
+    (``pb_program.Solution.results``), so that a request of several solves
+    counts whole; a record that holds only ``result`` gives that one."""
+    if hasattr(sol, "results"):
+        return tuple(sol.results)
+    return () if sol.result is None else (sol.result,)
+
+
 def stage_counters(run, key: str) -> list:
-    """The traced solutions' ``SolveResult.stages`` entries that carry
-    ``key`` (a program without the counter gives none)."""
-    return [st for s in run.traced if s.result is not None
-            for st in s.result.stages if key in st]
+    """The ``SolveResult.stages`` entries of every solve of the traced
+    requests that carry ``key`` (a program without the counter gives
+    none)."""
+    return [st for s in run.traced for r in results(s) for st in r.stages
+            if key in st]

@@ -4,17 +4,19 @@
         --trace <0|1>
 
 A cell (``BENCHMARK.json``'s ``workloads``) names a configuration (a fixed
-set of K problem instances and the solver's arguments) and a traffic mix
-(how the solutions are served).  Set-up makes the scenes, builds the
-kernels and one operator per scene, and warms up with one solution; the
-seed draws the order of service, the probe of the operator and the
-certificate's start vectors.  The
-window then serves solutions back to back, one user in a closed loop, the
+set of K problem instances, the solver's arguments and the route that
+serves them, ``routes/<name>.py``) and a traffic mix (how the requests are
+served).  Set-up builds the kernels, makes the route's scenes, builds what
+it holds for each (``routes/certify.py``: one operator per scene), and
+warms up with one request; the seed draws the order of service, the probe
+of the operator and the certificate's start vectors.  The window then
+serves the route's requests back to back, one user in a closed loop, the
 scenes in turn in an order drawn from the seed, and closes at the end of
 the cycle in flight once ``--seconds`` have passed, so that every run
 serves whole cycles.  With ``--trace 1`` the window's first whole cycles
-past ``pb_trace.TRACE_SECONDS`` run under the profiler.  Every solution is judged against the plain
-reference (``pb_reference``, ``pb_judge``) after the window.  The last line
+past ``pb_trace.TRACE_SECONDS`` run under the profiler.  Every request is
+judged by the route against the plain reference (``pb_reference``,
+``pb_judge``) after the window.  The last line
 of standard output is the result: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones, each read by ``metrics/<name>.py``), ``device``, with
@@ -29,7 +31,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -77,28 +78,19 @@ def power_line() -> str:
         return "not read"
 
 
-def make_scenes(config: dict) -> list:
-    """The configuration's K scenes: a fixed set of problems, one for each
-    generator seed in ``scene_seeds``.  (Drawn from the run's seed, the
-    problems' work changed from run to run by up to tenfold.)"""
-    import pb_scenes
-
-    gen = pb_scenes.GENERATORS[config["generator"]]
-    return [gen(**config["scene"], seed=s) for s in config["scene_seeds"]]
-
-
 class Memory:
-    """One problem's device memory, though set-up keeps every scene's
-    operator resident: the peak while one operator is built or one
-    solution runs, less what the other scenes' operators hold.  ``peak()``
-    is the process's own peak, every scene's operator in it."""
+    """One problem's device memory, though set-up keeps what every scene
+    holds resident (a route's ``setup``: its operator, say): the peak while
+    one scene's set-up is built or one request runs, less what the other
+    scenes hold.  ``peak()`` is the process's own peak, every scene's
+    holding in it."""
 
     def __init__(self, device):
         import torch
 
         self.cuda = device.type == "cuda"
         self.device, self.torch = device, torch
-        self.own = {}              # id(operator) -> the bytes it holds
+        self.own = {}              # id(held) -> the bytes it holds
         self.problem_peak = 0
         self._raw = 0
 
@@ -127,13 +119,11 @@ class Memory:
             self.problem_peak = max(self.problem_peak, peak - base)
         return op
 
-    def solve(self, k, op, config, device):
-        import pb_program
-
+    def solve(self, request, k, held, config, device):
         base = self._start()
-        sol = pb_program.solve_one(k, op, config, device)
+        sol = request(k, held, config, device)
         if self.cuda:
-            others = base - self.own[id(op)]
+            others = base - self.own[id(held)]
             self.problem_peak = max(self.problem_peak, self._end() - others)
         return sol
 
@@ -141,61 +131,6 @@ class Memory:
         if self.cuda:
             self._end()
         return self._raw
-
-
-def judge(scenes, ops, sols, config, seed, device, control_dtype=None,
-          log=print) -> "tuple[dict, int, dict]":
-    """``(worst, failed, control)``: each number's worst reading over the
-    solutions ``sols`` of ``scenes`` (built into ``ops``) against the
-    float64 reference, the solutions that raised or did not certify, and,
-    with ``control_dtype``, the worst readings of the control: the
-    reference computed in that precision put in the program's place at the
-    program's factors.  Frees the operators before the reference runs."""
-    import torch
-
-    import pb_judge
-    import pb_program
-    import pb_reference
-
-    cuda = device.type == "cuda"
-    failed = 0
-    outputs = {k: [] for k in range(len(scenes))}
-    for s in sols:
-        if s.error:
-            log(f"[portbench] scene {s.scene} raised:\n{s.error}")
-        if s.result is None or not s.result.certified:
-            failed += 1
-            continue
-        r = s.result
-        outputs[s.scene].append(pb_judge.Output(
-            s.scene, r.R, r.s_ex, float(r.primal), bool(r.certified),
-            *s.recovered))
-    probes = [pb_judge.probe_block(3 * sc.N, seed, k, device)
-              for k, sc in enumerate(scenes)]
-    applied = [pb_program.probe_applies(op, X) for op, X in zip(ops, probes)]
-    ops.clear()
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    worst, ctrl = {}, {}
-    t = time.perf_counter()
-    for k, sc in enumerate(scenes):
-        el = pb_reference.eliminate(sc.edges, sc.weights, sc.landmarks, sc.N,
-                                    sc.M, torch.float64, device)
-        sides = [(worst, applied[k], outputs[k])]
-        if control_dtype is not None:
-            sides.append((ctrl, *pb_judge.control_outputs(
-                sc, outputs[k], probes[k], control_dtype, device)))
-        for into, got, outs in sides:
-            for name, v in pb_judge.judge_scene(
-                    el, probes[k], got, outs, config["limits"], seed, k,
-                    device).items():
-                into[name] = max(into.get(name, 0.0), v)
-        del el
-        if cuda:
-            torch.cuda.empty_cache()
-    log(f"[portbench] reference {time.perf_counter() - t} s")
-    return worst, failed, ctrl
 
 
 def run_cell(cell: pb_spec.Cell, seed: int, seconds: float, trace: bool,
@@ -210,6 +145,7 @@ def run_cell(cell: pb_spec.Cell, seed: int, seconds: float, trace: bool,
     import pb_trace
 
     config, parts = cell.config, {}
+    route = pb_spec.load_route(cell)
     t = time.perf_counter()
     parts["import"] = t - T_START
     cuda = device.type == "cuda"
@@ -223,14 +159,14 @@ def run_cell(cell: pb_spec.Cell, seed: int, seconds: float, trace: bool,
         if built:
             log(f"[portbench] nvcc built {sorted(built)}")
     parts["kernels"], t = time.perf_counter() - t, time.perf_counter()
-    scenes = make_scenes(config)
+    scenes = route.scenes(config)
     parts["scenes"], t = time.perf_counter() - t, time.perf_counter()
     mem = Memory(device)
-    ops = [mem.build(pb_program.build_operator, sc, config, device)
-           for sc in scenes]
+    held = [mem.build(route.setup, sc, config, device) for sc in scenes]
     parts["operators"], t = time.perf_counter() - t, time.perf_counter()
     order = np.random.default_rng(seed).permutation(len(scenes))
-    warm = mem.solve(int(order[0]), ops[order[0]], config, device)
+    warm = mem.solve(route.request, int(order[0]), held[order[0]], config,
+                     device)
     if warm.error:
         raise RuntimeError(f"warm-up solution raised:\n{warm.error}")
     parts["warmup"] = time.perf_counter() - t
@@ -251,7 +187,8 @@ def run_cell(cell: pb_spec.Cell, seed: int, seconds: float, trace: bool,
         while not (sols and len(sols) % K == 0
                    and time.perf_counter() - t0 >= until):
             k = int(order[len(sols) % K])
-            sols.append(mem.solve(k, ops[k], config, device))
+            sols.append(mem.solve(route.request, k, held[k], config,
+                                  device))
             log(f"[portbench] solution {len(sols)} scene {k} "
                 f"{sols[-1].wall_s:.3f} s")
 
@@ -280,8 +217,10 @@ def run_cell(cell: pb_spec.Cell, seed: int, seconds: float, trace: bool,
 
     # ---- judgement, after the window, with the program's state freed
     del warm
-    worst, failed, _ = judge(scenes, ops, sols, config, seed, device, log=log)
-    correct, checks = pb_judge.verdict(worst, failed, config["limits"])
+    worst, failed, _ = route.judge(scenes, held, sols, config, seed, device,
+                                   log=log)
+    correct, checks = pb_judge.verdict(worst, failed, config["limits"],
+                                       route.CHECKS)
 
     t = time.perf_counter()
     metrics_list = cell.per_layer if trace else cell.end_to_end
