@@ -55,7 +55,8 @@ arithmetic in ``utils.timer.applies_f64`` (the exact ``SchurQ``),
 shards.  A fused product is counted in ``applies_fused`` too, and in
 ``schurq_product.launches``.  A whole ``SchurQ`` on the fused route is
 ``capturable``: ``solver/graph_step.py`` replays its products inside CUDA
-graphs and counts them as its captures recorded them.
+graphs and counts them as its captures recorded them.  ``SchurQ.build``
+runs in the span ``xm.schurq.build``.
 
 ``vt_build="auto"`` takes "chol" on both devices (the reference's CPU
 branch; f64 Cholesky is native on the H100); "ns" (f32 Cholesky seed + f64
@@ -79,9 +80,10 @@ from xmtpu_torch.ops.qop import QOperator, split_f32, tf_gemm
 from xmtpu_torch.ops.segsum import (max_band, planned_offsets,
                                     sorted_segment_sum)
 from xmtpu_torch.utils.timer import (applies_f32, applies_f64, applies_fused,
-                                     applies_tf, launcher, span)
+                                     applies_tf, launcher, span, spanned)
 
 APPLY_SPAN = "xm.schurq.apply"
+BUILD_SPAN = "xm.schurq.build"
 
 # above this (N * M * 8 bytes) the build switches from one (N, M) V3F slab
 # to landmark-chunked Gram accumulation (the reference's ~4 GB budget)
@@ -229,6 +231,7 @@ class SchurQ(QOperator):
         return dataclasses.replace(self, band_l=band_l, band_f=band_f)
 
     @staticmethod
+    @spanned(BUILD_SPAN)
     def build(weights, edges, landmarks, landmark_chunk: "int | None" = None,
               vt_build: str = "auto", device=None) -> "SchurQ":
         """From the same inputs as ``create_matrix`` (1-based edges), on

@@ -26,6 +26,11 @@ the next where they nest:
 * ``xm.recover``: ``pipeline/recover.recover_XM`` / ``recover_XM_implicit``,
   a leaf: no span opens inside it.
 
+Around the solve, XM^2's two passes (``pipeline/xm2.py``): ``xm.xm2``, the
+whole of ``xm2_solve``; ``xm.xm2.host``, each of its host stages over the
+observations (``checklandmarks``, the residuals and the percentile cut);
+``xm.schurq.build``, ``ops/schurq.SchurQ.build``.
+
 Counters.  :data:`host_reads` counts the device-to-host reads of the trust
 region's control loop (``solver/trust_region._fetch``,
 ``ops/fused_tcg._read_carry``), :data:`graph_replays` the replays of its
