@@ -190,10 +190,9 @@ def test_host_reads_count_the_read_sites(route, dense, implicit,
         assert sum(per_rank) == calls
         counts.append(per_rank)
     assert counts[0] == counts[1]
-    if route == "dense_fused_loop":
-        assert seen["_read_carry"] > 0
-    else:
-        assert seen["_read_carry"] == 0
+    # every tCG reads its loop's carry: the fused loop's, or the device
+    # scalars' of the eager loop
+    assert seen["_read_carry"] > 0
 
 
 def test_phases_are_spans():

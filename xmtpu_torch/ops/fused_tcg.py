@@ -565,10 +565,26 @@ def bind_loop(qmul, args, product=None) -> Loop:
 
 
 def _read_carry(sc: torch.Tensor) -> list:
-    """The scalar carry on the host: the loop's one read every
-    ``FLAG_EVERY`` launches (counted in ``utils.timer.host_reads``)."""
+    """The scalar carry on the host: a device tCG loop's one read between
+    two stretches of iterations (:func:`until_done`; counted in
+    ``utils.timer.host_reads``)."""
     host_reads.n += 1
     return sc.tolist()
+
+
+def until_done(advance, carry: torch.Tensor, max_inner: int,
+               at=(S_DONE, S_I)) -> list:
+    """The flag-every-k loop that the device tCG loops run: ``advance()`` (a
+    stretch of iterations, enqueued), then one read of ``carry``
+    (:func:`_read_carry`), until its done flag (slot ``at[0]``) is set or
+    its iteration count (slot ``at[1]``) reaches ``max_inner``.  Returns
+    the last read."""
+    done_at, i_at = at
+    while True:
+        advance()
+        read = _read_carry(carry)
+        if read[done_at] != 0 or read[i_at] >= max_inner:
+            return read
 
 
 def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
@@ -585,7 +601,7 @@ def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
         loop = bind_loop(qmul, tuple(const.values()) + state + (sc, cfgsc))
     args, C32, product, checked = loop
 
-    while True:
+    def advance():
         for _ in range(FLAG_EVERY):
             if C32 is not None:
                 # the dense variant: one launch, the product inside
@@ -594,8 +610,6 @@ def inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta,
             # the split variant: the product outside the kernel
             product()
             tcg_step(*args, max_inner, checked=checked)
-        carry = _read_carry(args[ARG["sc"]])
-        if carry[S_DONE] != 0.0 or carry[S_I] >= max_inner:
-            break
 
+    carry = until_done(advance, args[ARG["sc"]], max_inner)
     return loop_result(args, R.dtype) + (int(carry[S_ER]), int(carry[S_I]))

@@ -49,7 +49,8 @@ from xmtpu_torch.utils.timer import (applies_f32, applies_f64,
                                      applies_fused, applies_replayed,
                                      applies_tf,
                                      f32_nonfinite, graph_replays,
-                                     host_reads, max_memory_allocated,
+                                     host_reads, inner_masked, inner_replayed,
+                                     max_memory_allocated,
                                      memory_allocated, span, spanned)
 
 STATUS_CERTIFIED = 1
@@ -83,7 +84,10 @@ class SolveResult(NamedTuple):
     # rank, its certificate included: utils.timer's counters of those names),
     # applies_fused (those of the f32 products that ran as the fused
     # kernels, utils.timer.applies_fused), applies_replayed (the products
-    # that ran by graph replay, utils.timer.applies_replayed) and, read only
+    # that ran by graph replay, utils.timer.applies_replayed), inner_replayed
+    # and inner_masked (the f64 tCG's inner iterations that ran inside a
+    # replayed loop graph, and those a replay ran past the loop's stop:
+    # utils.timer's counters of those names) and, read only
     # while spans are on and on a card, mem_base_bytes (allocated at the
     # solve's start), peak_bytes and cert_peak_bytes (the card's peak
     # allocation at the end of the rank's trust region and of its
@@ -96,13 +100,15 @@ _COUNTERS = {"host_reads": host_reads, "graph_replays": graph_replays,
              "f32_nonfinite": f32_nonfinite, "applies_f64": applies_f64,
              "applies_tf": applies_tf, "applies_f32": applies_f32,
              "applies_fused": applies_fused,
-             "applies_replayed": applies_replayed}
+             "applies_replayed": applies_replayed,
+             "inner_replayed": inner_replayed, "inner_masked": inner_masked}
 
 
 class _RankLog:
     """One rank's counters for ``SolveResult.stages`` (:data:`_COUNTERS`:
     the trust region's host reads, graph replays and non-finite f32 ends,
-    the implicit operator's products), and while spans are on the card's
+    the implicit operator's products, the replayed and masked f64 inner
+    iterations), and while spans are on the card's
     memory (``mem_base`` is the solve's, None when not read)."""
 
     def __init__(self, dev, mem_base):

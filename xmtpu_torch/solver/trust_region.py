@@ -4,15 +4,21 @@ PyTorch counterpart of ``xmtpu/solver/trust_region.py``; see that module for
 the reference semantics and line map.  The reference runs the outer and inner
 loops as ``lax.while_loop``s inside one jitted program; here they are host
 loops over device tensors.  Arrays (frames, scales, the carried ``2 Q sR``)
-stay on the device; the scalar control state (loss, trust radius, counters,
-flags) lives on the host as numpy scalars of the working dtype, so every
+stay on the device; the outer loop's scalar control state (loss, trust
+radius, counters, flags) lives on the host as numpy scalars of the working dtype, so every
 scalar decision rounds exactly as the reference's device scalars do.
 
 Inner-loop routing (``_inner_tcg``): an f32 carry on a CUDA device with the
 block-Jacobi preconditioner goes through the fused kernels
-(``ops.fused_tcg``); every other case — f64 carries, unpreconditioned runs
-and every CPU run — takes the generic loop, which is the reference's CPU
-branch.
+(``ops.fused_tcg``).  Every other case runs the reference's loop on device
+scalars (:func:`_tcg_open`, :func:`_tcg_body`: its IEEE operations in its
+order, its branches as selects), eagerly with one host read an iteration;
+where :func:`tcg_graph_route` holds (an f64 carry on a card, the
+preconditioner on, the tCG's products on a ``capturable`` f32 operator
+there: the ``inner_f32`` products on a whole fused ``SchurQ`` or an f32
+``DenseQ``), ``EagerSegments.tcg`` replays the same loop as CUDA graphs
+(``graph_step.InnerGraphs``), with one host read every ``FLAG_EVERY``
+iterations.
 
 One trust region, one ladder (:func:`_ladder`): the escape linesearch,
 the mixed ladder's f32 phase and its handover to float64, then the stage;
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch._device import resolve_device
+from xmtpu_torch.ops import fused_tcg
 from xmtpu_torch.ops import manifold as mf
 from xmtpu_torch.ops.qop import as_qop
 from xmtpu_torch.utils.timer import f32_nonfinite, host_reads, span, spanned
@@ -183,101 +190,173 @@ def _fetch(*xs, dt):
     return tuple(dt(v) for v in torch.stack(xs).tolist())
 
 
+def _precond(R, minv, rR, rs):
+    """The block-Jacobi preconditioner ``minv = (minv_R, ms)``
+    (:func:`_build_minv`) on a residual: the frames' tangent-projected
+    block solve, the scales' diagonal one."""
+    minv_R, ms = minv
+    zR = mf.apply3(minv_R, rR)
+    S = mf.sym3(mf.gram3(R, zR))
+    return zR - mf.apply3(S, R), rs / ms
+
+
 def _inner_tcg(qmul, R, s_ex, CsR, egR, egs, pgR, pgs, gradnorm, delta, lam,
                cfg: TRConfig, minv=None):
     """Steihaug truncated-CG on the trust-region subproblem (optionally
     block-Jacobi preconditioned: ``minv = (minv_R, ms)`` from
     :func:`_build_minv`).  Returns ``(vR, vs, hvR, hvs, endreason, iters)``
-    with host ints for the last two."""
+    with host ints for the last two.
+
+    An f32 preconditioned carry on a card takes the fused kernels.  Every
+    other case runs the loop on device scalars (:func:`_tcg_open`,
+    :func:`_tcg_body`) eagerly, one iteration and one read of its flags at
+    a time (``fused_tcg.until_done``), so that no iteration runs past the
+    stop; on :func:`tcg_graph_route`'s route ``EagerSegments.tcg`` replays
+    the same loop as CUDA graphs (``graph_step.InnerGraphs``)."""
     if (minv is not None and R.dtype == torch.float32
             and R.device.type == "cuda"):
-        from xmtpu_torch.ops import fused_tcg
-
         return fused_tcg.inner_tcg_fused(qmul, R, s_ex, CsR, egR, egs, pgR,
                                          pgs, gradnorm, delta, lam, cfg, minv)
-    dt = np_dtype(R.dtype)
+    Segr, c = _tcg_open(R, s_ex, egR, pgR, pgs, minv)
+    dd, thr = (torch.full((), float(v), dtype=R.dtype, device=R.device)
+               for v in _tcg_limits(np_dtype(R.dtype), delta, gradnorm))
+    zero = torch.zeros((), dtype=R.dtype, device=R.device)
+
+    def advance():
+        _tcg_body(qmul, R, s_ex, CsR, egR, egs, Segr, minv, float(lam), dd,
+                  thr, zero, cfg, c)
+
+    read = fused_tcg.until_done(advance, c.flags, cfg.max_inner,
+                                at=(F_DONE, F_I))
+    return c.vR, c.vs, c.hvR, c.hvs, int(read[F_ER]), int(read[F_I])
+
+
+# the slots of TCGCarry.flags, what the host reads of the loop
+F_DONE, F_I, F_ER = 0, 1, 2
+
+
+class TCGCarry(NamedTuple):
+    """The tCG loop's state on the device (:func:`_tcg_body`): the eight
+    vectors, the five recurrence scalars as 0-d tensors of the working
+    dtype, and the loop's control ``flags``, one int64 buffer of three:
+    ``done`` (0 or 1), ``i`` (the iterations run) and ``er`` (the end
+    reason), at :data:`F_DONE`, :data:`F_I` and :data:`F_ER`."""
+    vR: torch.Tensor
+    vs: torch.Tensor
+    hvR: torch.Tensor
+    hvs: torch.Tensor
+    rR: torch.Tensor
+    rs: torch.Tensor
+    pR: torch.Tensor
+    ps: torch.Tensor
+    rdotr: torch.Tensor
+    rdotz: torch.Tensor
+    vdotv: torch.Tensor
+    vdotp: torch.Tensor
+    pdotp: torch.Tensor
+    flags: torch.Tensor
+
+    @property
+    def done(self) -> torch.Tensor:
+        return self.flags[F_DONE]
+
+    @property
+    def i(self) -> torch.Tensor:
+        return self.flags[F_I]
+
+    @property
+    def er(self) -> torch.Tensor:
+        return self.flags[F_ER]
+
+
+def _tcg_limits(dt, delta, gradnorm):
+    """The loop's two thresholds, rounded on the host in the numpy dtype
+    ``dt`` as the reference rounds them: ``delta * delta`` and ``gradnorm *
+    min(gradnorm, 0.1)``."""
+    delta, gradnorm = dt(delta), dt(gradnorm)
+    return delta * delta, gradnorm * np.minimum(gradnorm, dt(0.1))
+
+
+def _tcg_open(R, s_ex, egR, pgR, pgs, minv) -> "tuple":
+    """The tCG's preamble on the device, with nothing read back: ``(Segr,
+    the first TCGCarry)``.  ``minv`` None: unpreconditioned (``z = r``)."""
     s = s_ex[1:]
     Segr = mf.sym3(mf.gram3(R, egR))
-    delta = dt(delta)
-    gradnorm = dt(gradnorm)
-
-    def precond(rR, rs):
-        minv_R, ms = minv
-        zR = mf.apply3(minv_R, rR)
-        S = mf.sym3(mf.gram3(R, zR))
-        return zR - mf.apply3(S, R), rs / ms
-
+    rdotr = mf.inner(pgR, pgR, pgs, pgs, s)
     if minv is None:
-        zR, zs = pgR, pgs
-        (rdotr,) = _fetch(mf.inner(pgR, pgR, pgs, pgs, s), dt=dt)
-        rdotz = rdotr
+        zR, zs, rdotz = pgR, pgs, rdotr.clone()
     else:
-        zR, zs = precond(pgR, pgs)
-        rdotr, rdotz = _fetch(mf.inner(pgR, pgR, pgs, pgs, s),
-                              mf.inner(pgR, zR, pgs, zs, s), dt=dt)
+        zR, zs = _precond(R, minv, pgR, pgs)
+        rdotz = mf.inner(pgR, zR, pgs, zs, s)
+    zero = torch.zeros((), dtype=R.dtype, device=R.device)
+    flags = torch.zeros((3,), dtype=torch.int64, device=R.device)
+    flags[F_ER].fill_(ER_MAX_INNER)
+    # no two fields share a tensor: _tcg_body writes them in place
+    return Segr, TCGCarry(
+        torch.zeros_like(pgR), torch.zeros_like(pgs), torch.zeros_like(pgR),
+        torch.zeros_like(pgs), pgR.clone(), pgs.clone(), -zR, -zs, rdotr,
+        rdotz, zero, zero.clone(), rdotz.clone(), flags)
 
-    vR, vs = torch.zeros_like(pgR), torch.zeros_like(pgs)
-    hvR, hvs = torch.zeros_like(pgR), torch.zeros_like(pgs)
-    rR, rs = pgR, pgs
-    pR, ps = -zR, -zs
-    vdotv = vdotp = dt(0.0)
-    pdotp = rdotz
-    endreason = ER_MAX_INNER
-    i = 0
-    done = False
-    while i < cfg.max_inner and not done:
-        rhR, rhs = mf.rhess(qmul, R, s_ex, CsR, egR, egs, pR, ps, float(lam),
-                            Segr=Segr)
-        (pHp,) = _fetch(mf.inner(pR, rhR, ps, rhs, s), dt=dt)
-        with np.errstate(all="ignore"):
-            alpha = rdotz / pHp
-            small = rdotr < dt(cfg.rdotr_min)
-            negcurv = (not small) and alpha <= 0.0
-            boundary_q = vdotv + dt(2.0) * alpha * vdotp + alpha * alpha * pdotp
-            exceed = (not small) and (not negcurv) and boundary_q > delta * delta
-            to_edge = negcurv or exceed
-            normal = (not small) and (not to_edge)
-            sqrt_val = np.sqrt(np.maximum(
-                vdotp * vdotp + pdotp * (delta * delta - vdotv), dt(0.0)))
-            tau = (-vdotp + sqrt_val) / pdotp
 
-        coef = float(tau if to_edge else (alpha if normal else dt(0.0)))
-        vR = vR + coef * pR
-        vs = vs + coef * ps
-        hvR = hvR + coef * rhR
-        hvs = hvs + coef * rhs
+def _tcg_body(qmul, R, s_ex, CsR, egR, egs, Segr, minv, lam_f: float, dd,
+              thr, zero, cfg: TRConfig, c: TCGCarry) -> None:
+    """One iteration of the Steihaug loop on the device, with nothing read
+    back: the carry ``c`` advanced in place (on the graph route, a graph's
+    static buffers).  ``dd`` and ``thr`` are :func:`_tcg_limits` and
+    ``zero`` a 0.0, all 0-d tensors of the working dtype; ``minv`` None:
+    unpreconditioned.
 
-        step_a = float(alpha if normal else dt(0.0))
-        rR = rR + step_a * rhR
-        rs = rs + step_a * rhs
+    The scalars round as the reference's device scalars do: each IEEE
+    operation in its order, a branch a select (``torch.where``), with no
+    fused multiply-add.  An iteration at or after the stop (``done``, or
+    ``max_inner`` iterations run) leaves every carried value as it was, so
+    a replay may run past the stop."""
+    s = s_ex[1:]
+    run = (c.done == 0) & (c.i < cfg.max_inner)
+    rhR, rhs = mf.rhess(qmul, R, s_ex, CsR, egR, egs, c.pR, c.ps, lam_f,
+                        Segr=Segr)
+    pHp = mf.inner(c.pR, rhR, c.ps, rhs, s)
+    alpha = c.rdotz / pHp
+    small = c.rdotr < cfg.rdotr_min
+    negcurv = (~small) & (alpha <= 0.0)
+    boundary_q = c.vdotv + 2.0 * alpha * c.vdotp + alpha * alpha * c.pdotp
+    exceed = (~small) & (~negcurv) & (boundary_q > dd)
+    to_edge = negcurv | exceed
+    normal = (~small) & (~to_edge)
+    sqrt_val = torch.sqrt(torch.maximum(
+        c.vdotp * c.vdotp + c.pdotp * (dd - c.vdotv), zero))
+    tau = (-c.vdotp + sqrt_val) / c.pdotp
 
-        if minv is None:
-            zR, zs = rR, rs
-            (rdotr_new,) = _fetch(mf.inner(rR, rR, rs, rs, s), dt=dt)
-            rdotz_new = rdotr_new
-        else:
-            zR, zs = precond(rR, rs)
-            rdotr_new, rdotz_new = _fetch(mf.inner(rR, rR, rs, rs, s),
-                                          mf.inner(rR, zR, rs, zs, s), dt=dt)
-        with np.errstate(all="ignore"):
-            superlin = normal and bool(
-                np.sqrt(rdotr_new) < gradnorm * np.minimum(gradnorm, dt(0.1)))
-            beta = rdotz_new / rdotz
-            if normal:
-                pR = -zR + float(beta) * pR
-                ps = -zs + float(beta) * ps
-                vdotv = vdotv + dt(2) * alpha * vdotp + alpha ** 2 * pdotp
-                vdotp = beta * (vdotp + alpha * pdotp)
-                pdotp = beta * beta * pdotp + rdotz_new
-                rdotr = rdotr_new
-                rdotz = rdotz_new
-
-        endreason = (ER_SMALL_RDOTR if small else ER_NEGCURV if negcurv
-                     else ER_BOUNDARY if exceed
-                     else ER_SUPERLINEAR if superlin else ER_MAX_INNER)
-        done = small or to_edge or superlin
-        i += 1
-    return vR, vs, hvR, hvs, endreason, i
+    coef = torch.where(to_edge, tau, torch.where(normal, alpha, zero))
+    step_a = torch.where(normal, alpha, zero)
+    rR = c.rR + step_a * rhR
+    rs = c.rs + step_a * rhs
+    zR, zs = (rR, rs) if minv is None else _precond(R, minv, rR, rs)
+    rdotr_new = mf.inner(rR, rR, rs, rs, s)
+    rdotz_new = (rdotr_new if minv is None
+                 else mf.inner(rR, zR, rs, zs, s))
+    superlin = normal & (torch.sqrt(rdotr_new) < thr)
+    beta = rdotz_new / c.rdotz
+    er = torch.where(small, ER_SMALL_RDOTR, torch.where(
+        negcurv, ER_NEGCURV, torch.where(
+            exceed, ER_BOUNDARY, torch.where(
+                superlin, ER_SUPERLINEAR, ER_MAX_INNER))))
+    upd = run & normal
+    # every new value is made before a carried one is overwritten; the
+    # vdotv update is boundary_q's expression
+    new = ((c.vR + coef * c.pR, c.vR, run), (c.vs + coef * c.ps, c.vs, run),
+           (c.hvR + coef * rhR, c.hvR, run), (c.hvs + coef * rhs, c.hvs, run),
+           (rR, c.rR, run), (rs, c.rs, run),
+           (-zR + beta * c.pR, c.pR, upd), (-zs + beta * c.ps, c.ps, upd),
+           (rdotr_new, c.rdotr, upd), (rdotz_new, c.rdotz, upd),
+           (boundary_q, c.vdotv, upd),
+           (beta * (c.vdotp + alpha * c.pdotp), c.vdotp, upd),
+           (beta * beta * c.pdotp + rdotz_new, c.pdotp, upd),
+           (er, c.er, run))
+    for value, carried, when in new:
+        torch.where(when, value, carried, out=carried)
+    c.done.logical_or_(run & (small | to_edge | superlin))
+    c.i.add_(run)
 
 
 def _build_minv(Cdiag, s_ex, lam):
@@ -365,12 +444,17 @@ class EagerSegments:
     everywhere but :func:`graph_route`'s route.  ``lam`` is the host scalar
     of the working dtype; ``Cdiag`` the operator's diagonal blocks for the
     block-Jacobi preconditioner (None: none); ``qmul_inner`` the tCG's
-    product (default ``qmul``)."""
+    product (default ``qmul``); ``inner`` the tCG's own provider on
+    :func:`tcg_graph_route`'s route (``graph_step.InnerGraphs``: its
+    ``solve`` returns what :func:`_inner_tcg` does), None for
+    :func:`_inner_tcg`."""
 
-    def __init__(self, qmul, lam, cfg: TRConfig, Cdiag=None, qmul_inner=None):
+    def __init__(self, qmul, lam, cfg: TRConfig, Cdiag=None, qmul_inner=None,
+                 inner=None):
         self.qmul, self.lam, self.lam_f, self.cfg = qmul, lam, float(lam), cfg
         self.Cdiag = Cdiag
         self.qmul_inner = qmul if qmul_inner is None else qmul_inner
+        self.inner = inner
 
     def state(self, st: TRState) -> TRState:
         return st
@@ -379,6 +463,8 @@ class EagerSegments:
         return _step_start(self.qmul, st.R, st.s_ex, st.QsR, self.lam_f)
 
     def tcg(self, st: TRState, grad, gradnorm):
+        if self.inner is not None:
+            return self.inner.solve(st, grad, gradnorm)
         minv = (None if self.Cdiag is None
                 else _build_minv(self.Cdiag, st.s_ex, self.lam))
         return _inner_tcg(self.qmul_inner, st.R, st.s_ex, *grad[:5], gradnorm,
@@ -391,7 +477,8 @@ class EagerSegments:
         pass
 
     def close(self) -> None:
-        pass
+        if self.inner is not None:
+            self.inner.close()
 
 
 def _outer_step(seg, st: TRState, gradtol, delta_bar) -> TRState:
@@ -519,7 +606,8 @@ def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
 
             seg = PhaseGraphs(qop, st, lam, cfg)
         else:
-            qmul_inner = None
+            qmul_inner = inner = None
+            Cdiag = qop.diag_blocks() if cfg.precondition else None
             if Q32 is not None:
                 work_dtype = st.R.dtype
                 q32 = as_qop(Q32)
@@ -527,9 +615,11 @@ def _run_chunk(Q, st: TRState, lam, gradtol, delta_bar, cfg: TRConfig,
                 def qmul_inner(Y):
                     return q32.apply(Y.to(torch.float32)).to(work_dtype)
 
-            seg = EagerSegments(qop.apply, lam, cfg,
-                                qop.diag_blocks() if cfg.precondition
-                                else None, qmul_inner)
+                if Cdiag is not None and tcg_graph_route(q32, st, cfg):
+                    from xmtpu_torch.solver.graph_step import InnerGraphs
+
+                    inner = InnerGraphs(q32, qmul_inner, Cdiag, st, lam, cfg)
+            seg = EagerSegments(qop.apply, lam, cfg, Cdiag, qmul_inner, inner)
         with contextlib.closing(seg):
             while not st.done and st.k < kmax:
                 st = _outer_step(seg, st, gradtol, delta_bar)
@@ -549,6 +639,22 @@ def graph_route(qop, st: TRState, cfg: TRConfig) -> bool:
     return (cfg.precondition and st.QsR is not None
             and R.dtype == torch.float32 and R.device.type == "cuda"
             and qop.capturable(R.device))
+
+
+def tcg_graph_route(q32, st: TRState, cfg: TRConfig) -> bool:
+    """Whether a chunk's tCG solves run on device scalars as CUDA graphs
+    (``graph_step.InnerGraphs``, in ``EagerSegments.tcg``): the carry is
+    f64 on a CUDA device, the block-Jacobi preconditioner is on, and the
+    tCG's product ``q32`` (the f32 operator of ``inner_f32``) is
+    ``capturable`` there (a whole ``DenseQ`` in f32, or a whole ``SchurQ``
+    whose products take the fused kernels).  Every other case (CPU runs,
+    unpreconditioned runs, f32 carries, f64 carries whose tCG product is
+    the f64 operator itself, ``SchurQEdgeF32``, ``SchurQTF`` and the
+    sharded operators as tCG products) runs the same loop eagerly in
+    :func:`_inner_tcg`."""
+    R = st.R
+    return (cfg.precondition and R.dtype == torch.float64
+            and R.device.type == "cuda" and q32.capturable(R.device))
 
 
 def _init_state(Q, R0, s_ex0, lam, delta_bar, cfg: TRConfig,

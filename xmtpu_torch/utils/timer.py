@@ -43,7 +43,10 @@ those in float32 arithmetic (``SchurQEdgeF32``'s edge sums, ``SchurQ``
 cast to float32), :data:`applies_fused` those of the float32 ones that
 ran as the fused kernels (``ops/schurq.schurq_product`` on a card), and
 :data:`applies_replayed` those of all three that ran inside a replayed
-CUDA graph (``solver/graph_step.py``).  All only grow, and a reader takes
+CUDA graph (``solver/graph_step.py``), :data:`inner_replayed` the float64
+tCG's inner iterations that ran inside a replayed loop graph and
+:data:`inner_masked` those that a replay ran past the loop's stop
+(``graph_step.InnerGraphs``).  All only grow, and a reader takes
 the difference over the stretch it measures.  :data:`COUNTERS` lists
 them, and :func:`launcher` enters the kernel launchers of ``ops/``, each of
 which counts its calls in its attribute ``launches``, in
@@ -132,6 +135,11 @@ applies_f32 = ReadCounter()
 applies_fused = ReadCounter()
 # the products among them that ran by graph replay (solver/graph_step.py)
 applies_replayed = ReadCounter()
+# the float64 tCG's inner iterations that ran inside a replayed loop graph,
+# and those that a replay ran past the loop's stop, every carried value
+# kept (solver/graph_step.py InnerGraphs)
+inner_replayed = ReadCounter()
+inner_masked = ReadCounter()
 # the depth of open leaf spans (spanned(..., leaf=True)): no span opens
 # inside one
 _leaves = ReadCounter(listed=False)
